@@ -1,11 +1,11 @@
 // pbrt_tpu native host components.
 //
-// The TPU compute path is JAX/XLA/Pallas; these are the host-side native
+// The device compute path is JAX/XLA/Pallas; these are the host-side native
 // kernels where Python is the bottleneck at production scale:
 //
 //   * bvh_build  — binned-SAH BVH builder emitting the skip-link DFS
 //                  layout consumed by the device traversers
-//                  (pbrt_tpu/accel/bvh.py, ops/pallas_bvh.py).  Handles
+//                  (pbrt_tpu/accel/bvh.py, ops/traverse.py).  Handles
 //                  1M+ triangles in tens of milliseconds vs seconds for
 //                  the Python median-split builder — and with SAH quality.
 //   * tokenize   — byte-level pbrt scene tokenizer with the exact token

@@ -1,24 +1,21 @@
 """BVH accelerator: host build, stackless device traversal.
 
-Build (host, numpy): top-down median split on the largest centroid axis,
-leaves hold up to ``LEAF_SIZE`` triangles, nodes emitted in depth-first
-order with **skip links** (node i's skip = first node after its subtree).
+Build (host): binned SAH on the largest centroid axis (native C++ in
+``native/pbrt_native.cpp``, with a Python fallback of the same tree
+class).  Leaves hold up to ``LEAF_SIZE`` triangles; nodes are emitted in
+depth-first order with **skip links** (node i's skip = first node after
+its subtree).
 
-Traversal (device): the skip-link layout makes traversal a single
-``lax.while_loop`` with a per-lane node cursor and *no stack* — the
-classic GPU threaded-BVH scheme, which maps cleanly onto the TPU VPU:
-every step is a handful of [N]-wide gathers (node bbox, leaf triangles)
-plus slab/Moller arithmetic.  Lanes that finish park at ``node == M`` and
-the loop ends when all lanes are parked.  Front-to-back ordering is not
-per-ray (skip links fix child order), but t_max shrinks as hits are found
-so far boxes are culled.
+Traversal (device, ``ops/traverse.py``): the skip-link layout makes the
+walk stackless — each lane carries one node cursor and its best hit.
+Front-to-back ordering is not per-ray (skip links fix child order), but
+t_max shrinks as hits are found, so far boxes are culled.
 
 Spheres stay on the chunked brute-force path (scenes have few analytic
 spheres); the BVH covers triangles, where the primitive counts live.
 
 Replaces the reference's never-built "bvh" accelerator default
-(api.rs:237).  A Pallas traversal kernel and a C++ builder are the
-planned speed-of-light upgrades.
+(api.rs:237).
 """
 
 from __future__ import annotations
@@ -29,26 +26,11 @@ import jax
 import jax.numpy as jnp
 
 from pbrt_tpu import float_t
-from pbrt_tpu.ops.intersect import (
-    KIND_NONE,
-    KIND_SPHERE,
-    KIND_TRI,
-    RAY_EPS,
-    BruteForceIntersector,
-    sphere_intersect_chunk,
-)
+from pbrt_tpu.ops.intersect import KIND_NONE, KIND_SPHERE, KIND_TRI, RAY_EPS
 from pbrt_tpu.ops.intersect_soa import SoABruteForceIntersector
+from pbrt_tpu.ops.traverse import BVHTables, pack_tables, traverse
 
 LEAF_SIZE = 4
-
-# above this triangle count the accelerator uses the two-level streaming
-# kernel (ops/stream_bvh.py): measured faster than the whole-tree kernel
-# even when the whole tree fits VMEM (per-block cluster culling trims the
-# walk), and it has no scene-size wall.  Below it the whole-tree kernel's
-# zero per-step machinery wins.
-STREAM_MIN_TRIS = 4096
-# retained for reference: whole-tree table cost is ~128 B/triangle in VMEM
-WHOLE_TREE_VMEM_BUDGET = 10 * 1024 * 1024
 
 
 def build_bvh(p0, p1, p2, leaf_size=LEAF_SIZE, use_native=True):
@@ -173,117 +155,44 @@ def build_bvh(p0, p1, p2, leaf_size=LEAF_SIZE, use_native=True):
 class BVHIntersector:
     """Skip-link BVH for triangles + brute-force spheres.
 
-    Backend dispatch (measured): the per-lane-gather XLA while_loop
-    traversal is fine on CPU but catastrophic on TPU (~0.01 Mray/s — TPU
-    gathers serialize), so on accelerator backends traversal runs the
-    Pallas packet kernel (ops/pallas_bvh.py) with rays pre-sorted by
-    direction octant + origin Morton code for packet coherence.
+    Traversal is chosen by platform (``ops/traverse.py``): the Triton
+    kernel on "gpu", the XLA while_loop walk on "cpu".  With ``sort=True``
+    the GPU path first co-sorts the rays by direction octant and origin
+    Morton code so that neighbouring lanes walk similar paths.
     """
 
     def __init__(self, tri_data, sph_data, leaf_size=LEAF_SIZE,
-                 use_pallas=None, pallas_interpret=False):
+                 platform=None):
+        self.platform = platform or jax.default_backend()
+        if self.platform not in ("gpu", "cpu"):
+            raise ValueError(
+                f"no BVH traversal for platform {self.platform!r}"
+            )
         self.n_tri = tri_data.count if tri_data is not None else 0
         self.n_sph = sph_data.count if sph_data is not None else 0
         self._sph_brute = None
-        self._pallas = None
         if self.n_sph:
             self._sph_brute = SoABruteForceIntersector(None, sph_data)
         if self.n_tri:
-            if use_pallas is None:
-                use_pallas = jax.default_backend() not in ("cpu",)
-            import os
-
-            # A/B override: PBRT_TPU_STREAM_MIN_TRIS forces the
-            # whole-tree kernel (large value) or streaming (0)
-            stream_min = int(
-                os.environ.get("PBRT_TPU_STREAM_MIN_TRIS", STREAM_MIN_TRIS)
-            )
-            use_stream = use_pallas and self.n_tri >= stream_min
-            # BVH8 wide-node walk (ops/bvh8.py): 8 child slabs per
-            # iteration -> ~3x fewer iterations at ~4x vector work, so the
-            # ~440 ns/iter control floor amortizes (r4 roofline).  Default
-            # ON; PBRT_TPU_WIDE=0 falls back to the binary ordered walk
-            # (equality test: tests/test_bvh8.py)
-            wide = use_pallas and (
-                os.environ.get("PBRT_TPU_WIDE", "1") not in ("", "0")
-            )
-            if use_pallas:
-                # packed Pallas kernels test whole leaf rows as dense vector
-                # ops; the streaming kernel packs 32-tri leaves (4 rows) —
-                # the r5 roofline replay put 69% of wide-walk iterations at
-                # LEAVES, and 32-slot leaves measured 84.6 vs 88.0 ms on
-                # the 1M-tri sweep (leaf iterations halve, vector work per
-                # leaf doubles).  PBRT_TPU_LEAF_SLOTS overrides for A/Bs.
-                leaf_size = int(os.environ.get(
-                    "PBRT_TPU_LEAF_SLOTS", 32 if use_stream else 16
-                ))
             mins, maxs, skips, firsts, counts, perm = build_bvh(
                 tri_data.p0, tri_data.p1, tri_data.p2, leaf_size
             )
             self.n_nodes = len(mins)
-            # per-component [M] arrays: per-lane gathers then produce flat
-            # [N] vectors with full 128-lane tile occupancy (a gathered
-            # [N,3] would put the 3-axis on the lanes)
-            self.node_min_c = tuple(jnp.asarray(mins[:, c].copy()) for c in range(3))
-            self.node_max_c = tuple(jnp.asarray(maxs[:, c].copy()) for c in range(3))
-            self.node_skip = jnp.asarray(skips)
-            self.node_first = jnp.asarray(firsts)
-            self.node_count = jnp.asarray(counts)
-            tp0 = tri_data.p0[perm].astype(float_t)
-            tp1 = tri_data.p1[perm].astype(float_t)
-            tp2 = tri_data.p2[perm].astype(float_t)
-            self.tri_c = tuple(
-                jnp.asarray(arr[:, c].copy())
-                for arr in (tp0, tp1, tp2)
-                for c in range(3)
-            )
-            self.perm = jnp.asarray(perm.astype(np.int32))
             self.leaf_size = leaf_size
-            if use_pallas:
-                if use_stream:
-                    # two-level streaming path: top-level cluster culling in
-                    # XLA, per-cluster tables DMA'd HBM->VMEM by the Pallas
-                    # pipeline — no whole-tree VMEM wall (ops/stream_bvh.py)
-                    from pbrt_tpu.ops.stream_bvh import StreamBVH
-
-                    self._pallas = StreamBVH(
-                        mins, maxs, skips, firsts, counts,
-                        tri_data.p0[perm], tri_data.p1[perm], tri_data.p2[perm],
-                        interpret=pallas_interpret, leaf_slots=leaf_size,
-                        wide=wide,
-                    )
-                elif wide:
-                    from pbrt_tpu.ops.bvh8 import PallasBVH8
-
-                    self._pallas = PallasBVH8(
-                        mins, maxs, skips, firsts, counts,
-                        tri_data.p0[perm], tri_data.p1[perm], tri_data.p2[perm],
-                        interpret=pallas_interpret, leaf_slots=leaf_size,
-                    )
-                else:
-                    from pbrt_tpu.ops.pallas_bvh import PallasBVH2
-
-                    self._pallas = PallasBVH2(
-                        mins, maxs, skips, firsts, counts,
-                        tri_data.p0[perm], tri_data.p1[perm], tri_data.p2[perm],
-                        interpret=pallas_interpret,
-                    )
-                # fold slot -> permuted-prim into the original-id map so hit
-                # ids resolve with the single existing gather; keep the
-                # slot -> DFS map for post-kernel barycentric derivation
-                self._slot_to_dfs = jnp.asarray(
-                    self._pallas.slot_to_prim.astype(np.int32)
-                )
-                self.perm = jnp.asarray(
-                    perm.astype(np.int32)[self._pallas.slot_to_prim]
-                )
+            self.tables = BVHTables(*(jnp.asarray(a) for a in pack_tables(
+                mins, maxs, skips, firsts, counts,
+                tri_data.p0[perm].astype(float_t),
+                tri_data.p1[perm].astype(float_t),
+                tri_data.p2[perm].astype(float_t),
+            )))
+            self.perm = jnp.asarray(perm.astype(np.int32))
             # scene bounds for Morton-coded ray sorting
             self._scene_min = jnp.asarray(mins[0])
             self._scene_extent = jnp.asarray(
                 np.maximum(maxs[0] - mins[0], 1e-6)
             )
 
-    # -- device kernels ----------------------------------------------------
+    # -- ray ordering --------------------------------------------------------
 
     @staticmethod
     def _part1by2(v):
@@ -296,26 +205,21 @@ class BVHIntersector:
         return v
 
     def _sort_keys(self, o, d, t_max=None):
-        """Dead bit (top), direction octant, direction Morton, origin Morton.
+        """Dead bit (top), origin Morton, direction octant, direction Morton.
 
         Direction bits matter as much as origin bits: camera and
         point-light shadow wavefronts share ONE origin, so an origin-only
-        key leaves each packet a wide divergent cone and the speculative
-        packet walk degenerates to a near-full-tree scan (measured: the
-        50k-tri torus went 0.7 -> 30+ Mray/s from direction sorting alone).
+        key would leave neighbouring lanes with widely divergent rays.
 
         Lanes whose ``t_max`` is already spent (terminated wavefront lanes,
-        failed shadow candidates) sort into their own trailing packets;
-        an all-dead packet exits traversal after one root test, so bounce
-        compaction falls out of the sort instead of a gather/scatter pass.
+        failed shadow candidates) sort to the end, so bounce compaction
+        falls out of the sort instead of a gather/scatter pass.
         """
         import os as _os
 
         # Key bit budget (31 bits: origin Morton | octant | direction
-        # Morton).  The 5/4 bits-per-axis default is tuned for
-        # shared-origin wavefronts; PBRT_TPU_KEY_OBITS re-balances for
-        # A/B on surface-origin bounce wavefronts (r5: the packet union
-        # on those is ~80% of the frame).
+        # Morton).  The 5/4 bits-per-axis default suits shared-origin
+        # wavefronts; PBRT_TPU_KEY_OBITS re-balances it.
         obits = int(_os.environ.get("PBRT_TPU_KEY_OBITS", "5"))
         dbits = min(4, (28 - 3 * obits) // 3)
         octant = (
@@ -349,169 +253,42 @@ class BVHIntersector:
         if t_max is not None:
             import os
 
-            # PBRT_TPU_NO_DEADBIT=1 disables the dead-lane packing for the
-            # compaction A/B measurement (scripts/profile_r4e.py)
+            # PBRT_TPU_NO_DEADBIT=1 disables the dead-lane packing
             if os.environ.get("PBRT_TPU_NO_DEADBIT", "0") in ("", "0"):
                 dead = (t_max <= RAY_EPS).astype(jnp.uint32)
                 key = key | (dead << 31)
         return key
 
-    def _traverse_pallas_sorted(self, o, d, t_max, any_hit):
-        """Sort rays for packet coherence, run the Pallas kernel, unsort.
+    def _traverse(self, o, d, t_max, any_hit, sort):
+        """(t, slot, b0, b1) for every lane, in lane order."""
+        def walk(o, d, t_max):
+            return traverse(self.platform, self.tables, o, d, t_max,
+                            any_hit=any_hit, leaf_size=self.leaf_size)
 
-        Permutation machinery is a single ``lax.sort`` CO-SORT: the ray
-        columns ride the sort network with the keys (measured r4: +~3 ms
-        for 21 payload operands over a bare argsort at 262k lanes, vs
-        ~8 ms per row-gather), and results return to lane order with ONE
-        packed row-scatter via the co-sorted lane ids — replacing the r3
-        argsort + scatter-inverse + ray gathers + output unsort chain.
-
-        Returns (t, slot): the kernel carries only (t, prim) — every extra
-        vector register in its loop state measured ~150x slower — so
-        barycentrics are derived afterwards (compute_interaction).
-        """
-        from pbrt_tpu.ops.sortnet import co_sort
-
-        keys = self._sort_keys(o, d, t_max)
-        n = keys.shape[0]
-        lane = jnp.arange(n, dtype=jnp.int32)
-        # hierarchical bitonic co-sort (ops/sortnet.py): the lax.sort
-        # network ran every stage at full HBM traffic; fusing the
-        # intra-block stages in VMEM roughly halves the per-sort cost
-        srt = co_sort(
-            (keys, lane,
-             o[:, 0], o[:, 1], o[:, 2],
-             d[:, 0], d[:, 1], d[:, 2],
-             jnp.broadcast_to(t_max, (n,))),
+        if not (sort and self.platform == "gpu"):
+            return walk(o, d, t_max)
+        # one co-sort carries the ray columns into traversal order; one
+        # packed row scatter returns the results to lane order
+        n = o.shape[0]
+        srt = jax.lax.sort(
+            (self._sort_keys(o, d, t_max), jnp.arange(n, dtype=jnp.int32),
+             o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max),
             num_keys=1,
         )
-        lane_s = srt[1]
-        t, prim = self._pallas.traverse(
-            srt[2:5], srt[5:8], srt[8], any_hit=any_hit, remap=False
+        t, prim, b0, b1 = walk(
+            jnp.stack(srt[2:5], -1), jnp.stack(srt[5:8], -1), srt[8]
         )
-        if any_hit:
-            # occlusion consumes only the hit bit: one 1-column scatter
-            prim_out = jnp.full((n,), -1, jnp.int32).at[lane_s].set(
-                prim, unique_indices=True
-            )
-            return jnp.zeros((n,), o.dtype), prim_out
-        if t.dtype == jnp.float32:
-            # pack in INT space: bitcasting prim (-1 = 0xFFFFFFFF) into an
-            # f32 lane makes it a NaN payload that TPU float ops may
-            # canonicalize — measured on-chip: an all-miss wavefront came
-            # back with a phantom prim on every lane (the r4 ADVICE item,
-            # caught by the bench miss_roundtrip canary).  Int lanes are
-            # never canonicalized, and t is a genuine finite float whose
-            # bits round-trip exactly.
-            packed = jnp.stack(
-                [jax.lax.bitcast_convert_type(t, jnp.int32), prim], axis=-1
-            )
-            out = jnp.zeros((n, 2), jnp.int32).at[lane_s].set(
-                packed, unique_indices=True
-            )
-            return jax.lax.bitcast_convert_type(
-                out[:, 0], jnp.float32
-            ), out[:, 1]
-        t_out = jnp.zeros((n,), t.dtype).at[lane_s].set(
-            t, unique_indices=True
+        bits = jax.lax.bitcast_convert_type
+        packed = jnp.stack(
+            [bits(t, jnp.int32), prim, bits(b0, jnp.int32),
+             bits(b1, jnp.int32)], axis=-1,
         )
-        prim_out = jnp.full((n,), -1, jnp.int32).at[lane_s].set(
-            prim, unique_indices=True
+        out = jnp.zeros_like(packed).at[srt[1]].set(
+            packed, unique_indices=True
         )
-        return t_out, prim_out
-
-    def _traverse_xla(self, o, d, t_max, any_hit: bool):
-        n = o.shape[0]
-        m = self.n_nodes
-        ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-
-        def safe_inv(v):
-            sign = jnp.where(v < 0.0, -1.0, 1.0)
-            return jnp.clip(sign / jnp.maximum(jnp.abs(v), 1e-20), -1e30, 1e30)
-
-        ivx, ivy, ivz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
-
-        def cond(state):
-            node = state[0]
-            return jnp.any(node < m)
-
-        def body(state):
-            node, best_t, best_prim, b0c, b1c = state
-            active = node < m
-            ni = jnp.minimum(node, m - 1)
-            tx0 = (self.node_min_c[0][ni] - ox) * ivx
-            tx1 = (self.node_max_c[0][ni] - ox) * ivx
-            ty0 = (self.node_min_c[1][ni] - oy) * ivy
-            ty1 = (self.node_max_c[1][ni] - oy) * ivy
-            tz0 = (self.node_min_c[2][ni] - oz) * ivz
-            tz1 = (self.node_max_c[2][ni] - oz) * ivz
-            t_near = jnp.maximum(
-                jnp.maximum(jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)),
-                jnp.minimum(tz0, tz1),
-            )
-            t_far = jnp.minimum(
-                jnp.minimum(jnp.maximum(tx0, tx1), jnp.maximum(ty0, ty1)),
-                jnp.maximum(tz0, tz1),
-            )
-            box_hit = active & (t_near <= t_far) & (t_far > RAY_EPS) & (t_near < best_t)
-            count = self.node_count[ni]
-            is_leaf = count > 0
-            first = self.node_first[ni]
-
-            # leaf triangle tests (static unroll over leaf slots)
-            (p0x, p0y, p0z, p1x, p1y, p1z, p2x, p2y, p2z) = self.tri_c
-            for k in range(self.leaf_size):
-                pid = jnp.minimum(first + k, self.n_tri - 1)
-                valid = box_hit & is_leaf & (k < count)
-                ax, ay, az = p0x[pid], p0y[pid], p0z[pid]
-                e1x, e1y, e1z = p1x[pid] - ax, p1y[pid] - ay, p1z[pid] - az
-                e2x, e2y, e2z = p2x[pid] - ax, p2y[pid] - ay, p2z[pid] - az
-                pvx = dy * e2z - dz * e2y
-                pvy = dz * e2x - dx * e2z
-                pvz = dx * e2y - dy * e2x
-                det = e1x * pvx + e1y * pvy + e1z * pvz
-                inv_det = jnp.where(
-                    jnp.abs(det) > 1e-12, 1.0 / jnp.where(det == 0, 1.0, det), 0.0
-                )
-                tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-                b0 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-                qvx = tvy * e1z - tvz * e1y
-                qvy = tvz * e1x - tvx * e1z
-                qvz = tvx * e1y - tvy * e1x
-                b1 = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-                tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-                tri_hit = (
-                    valid
-                    & (jnp.abs(det) > 1e-12)
-                    & (b0 >= 0.0)
-                    & (b1 >= 0.0)
-                    & (b0 + b1 <= 1.0)
-                    & (tt > RAY_EPS)
-                    & (tt < best_t)
-                )
-                best_prim = jnp.where(tri_hit, pid, best_prim)
-                b0c = jnp.where(tri_hit, b0, b0c)
-                b1c = jnp.where(tri_hit, b1, b1c)
-                best_t = jnp.where(tri_hit, tt, best_t)
-
-            descend = box_hit & ~is_leaf
-            next_node = jnp.where(descend, ni + 1, self.node_skip[ni])
-            next_node = jnp.where(active, next_node, m)
-            if any_hit:
-                found = best_prim >= 0
-                next_node = jnp.where(found, m, next_node)
-            return next_node, best_t, best_prim, b0c, b1c
-
-        init = (
-            jnp.zeros((n,), dtype=jnp.int32),
-            jnp.asarray(t_max, dtype=o.dtype),
-            jnp.full((n,), -1, dtype=jnp.int32),
-            jnp.zeros((n,), dtype=o.dtype),
-            jnp.zeros((n,), dtype=o.dtype),
-        )
-        node, best_t, best_prim, b0, b1 = jax.lax.while_loop(cond, body, init)
-        return best_t, best_prim, b0, b1
+        f32 = jnp.float32
+        return (bits(out[:, 0], f32), out[:, 1], bits(out[:, 2], f32),
+                bits(out[:, 3], f32))
 
     # integrators may pass sort=False for wavefronts that are already
     # coherent in lane order (camera bounces: lanes are pixel-major)
@@ -531,27 +308,14 @@ class BVHIntersector:
         best_b0 = jnp.zeros((n,), dtype=o.dtype)
         best_b1 = jnp.zeros((n,), dtype=o.dtype)
 
-        bary = True
         if self.n_tri:
-            if self._pallas is not None:
-                if sort:
-                    t, prim = self._traverse_pallas_sorted(
-                        o, d, best_t, any_hit=False
-                    )
-                else:
-                    t, prim = self._pallas.traverse(
-                        o, d, best_t, any_hit=False, remap=False
-                    )
-                bary = False  # compute_interaction re-derives from its rows
-            else:
-                t, prim, b0, b1 = self._traverse_xla(o, d, best_t, any_hit=False)
+            t, prim, b0, b1 = self._traverse(o, d, best_t, False, sort)
             got = prim >= 0
             best_t = jnp.where(got, t, best_t)
             best_kind = jnp.where(got, KIND_TRI, best_kind)
             best_prim = jnp.where(got, self.perm[jnp.maximum(prim, 0)], best_prim)
-            if bary:
-                best_b0 = jnp.where(got, b0, best_b0)
-                best_b1 = jnp.where(got, b1, best_b1)
+            best_b0 = jnp.where(got, b0, best_b0)
+            best_b1 = jnp.where(got, b1, best_b1)
 
         if self.n_sph:
             sph = self._sph_brute.intersect(o, d, best_t)
@@ -566,11 +330,8 @@ class BVHIntersector:
             "hit": hit,
             "kind": best_kind,
             "prim": best_prim,
-            # None = derive from the hit triangle (the Pallas walks carry
-            # only (t, prim); compute_interaction projects p onto the dual
-            # basis of its already-gathered edges — zero extra gathers)
-            "b0": best_b0 if bary else None,
-            "b1": best_b1 if bary else None,
+            "b0": best_b0,
+            "b1": best_b1,
         }
 
     def occluded(self, o, d, t_max, sort=True):
@@ -578,17 +339,7 @@ class BVHIntersector:
         t_max = jnp.broadcast_to(t_max, (n,)).astype(o.dtype)
         found = jnp.zeros((n,), dtype=bool)
         if self.n_tri:
-            if self._pallas is not None:
-                if sort:
-                    _, prim = self._traverse_pallas_sorted(
-                        o, d, t_max, any_hit=True
-                    )
-                else:
-                    _, prim = self._pallas.traverse(
-                        o, d, t_max, any_hit=True, remap=False
-                    )
-            else:
-                _, prim, _, _ = self._traverse_xla(o, d, t_max, any_hit=True)
+            _, prim, _, _ = self._traverse(o, d, t_max, True, sort)
             found = prim >= 0
         if self.n_sph:
             found = found | self._sph_brute.occluded(o, d, t_max)

@@ -13,11 +13,15 @@ import logging
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from pbrt_tpu import PI, float_t
 from pbrt_tpu.core.sampling import concentric_sample_disk
 from pbrt_tpu.core.transform import Transform, apply_point, apply_vector
+
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 log = logging.getLogger("pbrt_tpu")
 
@@ -90,9 +94,12 @@ class ProjectiveCamera:
             w = time_weights(
                 jnp.broadcast_to(u_time, o.shape[:-1]).astype(o.dtype), k
             )
-            m = jnp.einsum("nk,kij->nij", w, self._anim_c2w.astype(o.dtype))
-            o_w = jnp.einsum("nij,nj->ni", m[:, :3, :3], o) + m[:, :3, 3]
-            d_w = jnp.einsum("nij,nj->ni", m[:, :3, :3], d)
+            m = jnp.einsum("nk,kij->nij", w, self._anim_c2w.astype(o.dtype),
+                           precision=HIGHEST)
+            o_w = jnp.einsum("nij,nj->ni", m[:, :3, :3], o,
+                             precision=HIGHEST) + m[:, :3, 3]
+            d_w = jnp.einsum("nij,nj->ni", m[:, :3, :3], d,
+                             precision=HIGHEST)
         return o_w, d_w / jnp.linalg.norm(d_w, axis=-1, keepdims=True)
 
 

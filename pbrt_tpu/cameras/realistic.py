@@ -5,7 +5,7 @@ pbrt-v3 surface it ports includes ``Camera "realistic"``: spherical lens
 elements read from a tabulated prescription, rays traced element-by-element
 with Snell refraction and aperture vignetting, thick-lens autofocus.
 
-TPU-native structure: the element list is tiny and static, so the wavefront
+Device structure: the element list is tiny and static, so the wavefront
 trace is an UNROLLED sequence of ~2 vector ops per surface (sphere quadratic
 + refraction) over the whole ray batch with an alive-mask — no per-ray
 control flow.  The host side (file parsing, thick-lens focusing with

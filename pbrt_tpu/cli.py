@@ -1,6 +1,6 @@
 """Command-line driver (reference: src/bin/pbrt.rs:24-85).
 
-Flags mirror the reference: -n/--nthreads (accepted for compatibility; TPU
+Flags mirror the reference: -n/--nthreads (accepted for compatibility;
 parallelism comes from the device mesh), --quick, -q/--quiet,
 -v/--verbose, -o/--outfile, positional scene files.  Verbosity maps to
 logging levels like bin/pbrt.rs:48-57; parse errors exit(1)
@@ -20,7 +20,7 @@ from pbrt_tpu.core.parser import ParseError
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="pbrt-tpu", description="TPU-native pbrt renderer"
+        prog="pbrt-tpu", description="JAX pbrt renderer"
     )
     ap.add_argument("-n", "--nthreads", type=int, default=1,
                     help="accepted for pbrt compatibility (mesh controls parallelism)")

@@ -8,7 +8,7 @@ scale/shear S (polar-decomposition iteration, pbrt
 AnimatedTransform::Decompose), and ``interpolate(t)`` rebuilds the time-t
 transform with lerp(T), slerp(R), lerp(S).
 
-TPU mapping: the device never slerps.  The host samples ``n_keys``
+Device mapping: the device never slerps.  The host samples ``n_keys``
 transforms across the shutter (adaptively: enough keys that the chord
 between consecutive keyframes is within ~0.5% of the slerp arc), applies
 them to object-space geometry, and the wavefront lerps vertex positions

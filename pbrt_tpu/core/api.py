@@ -11,7 +11,7 @@ stacks (api.rs:481-522) and named coordinate systems (api.rs:734-747).
 
 Unlike the reference — whose ``world_end`` is an empty stub
 (api.rs:432-473) — ``world_end`` here hands the accumulated
-:class:`SceneDescription` to the TPU renderer.
+:class:`SceneDescription` to the device renderer.
 
 State-guard behavior mirrors the verify macros (api.rs:291-332): errors are
 logged and the call is ignored; ``strict=True`` raises instead (the

@@ -7,7 +7,7 @@ sample bounds (film.rs:166-175), physical extent from diagonal
 write-time normalization order: xyz->rgb, /filter_weight_sum, + splat*scale,
 *scale (film.rs:340-383).
 
-TPU design replaces the FilmTile/mutex machinery (film.rs:264-326): samples
+The device design replaces the FilmTile/mutex machinery (film.rs:264-326): samples
 are splatted by **scatter-add** directly into a ``[H, W]`` device tensor —
 ``x.at[idx].add(...)`` with ``mode='drop'`` gives free bounds clipping; a
 sharded render keeps one partial film per device and merges with ``psum``
@@ -22,12 +22,16 @@ from typing import Dict
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from pbrt_tpu import float_t
 from pbrt_tpu.core import spectrum as spec
 from pbrt_tpu.core.filters import FILTER_TABLE_WIDTH, Filter
 from pbrt_tpu.core.geometry import Bounds2f, Bounds2i
+
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class Film:
@@ -145,7 +149,7 @@ class Film:
         # convert to XYZ once per sample (merge does this per pixel in the
         # reference, film.rs:320 — same result by linearity)
         m = jnp.asarray(np.asarray(spec.RGB_TO_XYZ, dtype=float_t))
-        xyz = L_rgb @ m.T
+        xyz = jnp.matmul(L_rgb, m.T, precision=HIGHEST)
 
         # half-open support (-r, r] per axis: a sample at an exact pixel
         # boundary belongs to the pixel it floors into — consistent with the
@@ -189,7 +193,7 @@ class Film:
         if mask is None:
             mask = jnp.ones(p_film.shape[0], dtype=bool)
         m = jnp.asarray(np.asarray(spec.RGB_TO_XYZ, dtype=float_t))
-        xyz = L_rgb @ m.T
+        xyz = jnp.matmul(L_rgb, m.T, precision=HIGHEST)
         bx, by = self.cropped_pixel_bounds.p_min
         lx = jnp.floor(p_film[..., 0]).astype(jnp.int32) - bx
         ly = jnp.floor(p_film[..., 1]).astype(jnp.int32) - by
@@ -203,7 +207,7 @@ class Film:
     def set_image(self, state, rgb_image):
         """Directly set pixel values (film.rs:329-331, completed)."""
         m = jnp.asarray(np.asarray(spec.RGB_TO_XYZ, dtype=float_t))
-        xyz = jnp.asarray(rgb_image) @ m.T
+        xyz = jnp.matmul(jnp.asarray(rgb_image), m.T, precision=HIGHEST)
         return {
             "xyz": xyz,
             "weight": jnp.ones_like(state["weight"]),
@@ -218,13 +222,13 @@ class Film:
     def to_rgb(self, state, splat_scale: float = 1.0):
         """Final [H,W,3] RGB per the write_image order (film.rs:340-372)."""
         minv = jnp.asarray(np.asarray(spec.XYZ_TO_RGB, dtype=float_t))
-        rgb = state["xyz"] @ minv.T
+        rgb = jnp.matmul(state["xyz"], minv.T, precision=HIGHEST)
         w = state["weight"]
         inv_w = jnp.where(w != 0.0, 1.0 / jnp.where(w == 0.0, 1.0, w), 1.0)
         rgb = jnp.where(
             (w != 0.0)[..., None], jnp.maximum(rgb * inv_w[..., None], 0.0), rgb
         )
-        splat_rgb = state["splat_xyz"] @ minv.T
+        splat_rgb = jnp.matmul(state["splat_xyz"], minv.T, precision=HIGHEST)
         rgb = rgb + splat_scale * splat_rgb
         return rgb * self.scale
 

@@ -1,7 +1,7 @@
 """Geometry: host-side bounds/points plus batched device vector math.
 
 The reference models scalar ``Vector3<T>``/``Point3<T>`` objects
-(/root/reference/src/core/geometry/vector.rs, point.rs).  The TPU build
+(reference src/core/geometry/vector.rs, point.rs).  The device build
 inverts this to structure-of-arrays: a "vector" is the trailing axis of a
 ``[..., 3]`` jnp array and every op below is batched.  Host-side integer
 bounds (``Bounds2i``) keep the reference's exact semantics because the film

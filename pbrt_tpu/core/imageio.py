@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import struct
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,98 @@ def to_byte(v):
     return np.clip(255.0 * gamma_correct(np.asarray(v, dtype=float_t)) + 0.5, 0.0, 255.0).astype(
         np.uint8
     )
+
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# channels per PNG colour type: grey, RGB, grey+alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def _write_png(name: str, rgb8: np.ndarray) -> None:
+    """8-bit RGB PNG: filter 0 on every row, one zlib stream."""
+    h, w, _ = rgb8.shape
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), rgb8.reshape(h, w * 3)], axis=1
+    )
+    with open(name, "wb") as f:
+        f.write(_PNG_SIG)
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters (PNG spec §9)."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    pos = 0
+    for y in range(h):
+        ftype = raw[pos]
+        line = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int32)
+        pos += stride + 1
+        if ftype == 1 or ftype == 3 or ftype == 4:
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + prev[x]) >> 1
+                else:
+                    b = prev[x]
+                    c = prev[x - bpp] if x >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype == 0:
+            cur = line
+        else:
+            raise ImageIOError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def _read_png(name: str) -> np.ndarray:
+    """8-bit, non-interlaced PNG -> [H, W, 3] uint8 RGB (alpha dropped,
+    grey expanded)."""
+    data = Path(name).read_bytes()
+    if not data.startswith(_PNG_SIG):
+        raise ImageIOError(f"{name}: not a PNG file")
+    pos = len(_PNG_SIG)
+    idat = []
+    hdr = None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ImageIOError(f"{name}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ImageIOError(
+            f"{name}: only 8-bit non-interlaced grey/RGB(A) PNG is supported"
+        )
+    ch = _PNG_CHANNELS[ctype]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
+    px = px.reshape(h, w, ch)
+    if ch < 3:
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return px[..., :3]
 
 
 def _read_pfm(name: str):
@@ -76,11 +169,7 @@ def read_image(name: str):
     """
     ext = Path(name).suffix.lower()
     if ext == ".png":
-        from PIL import Image
-
-        with Image.open(name) as im:
-            im = im.convert("RGB")
-            arr = np.asarray(im, dtype=float_t) / float_t(255.0)
+        arr = _read_png(name).astype(float_t) / float_t(255.0)
         return arr, (arr.shape[1], arr.shape[0])
     if ext == ".pfm":
         return _read_pfm(name)
@@ -108,9 +197,7 @@ def write_image(name: str, rgb, output_bounds: Bounds2i, total_resolution=None) 
     rgb = np.asarray(rgb, dtype=float_t).reshape(h, w, 3)
     ext = Path(name).suffix.lower()
     if ext == ".png":
-        from PIL import Image
-
-        Image.fromarray(to_byte(rgb), mode="RGB").save(name, format="PNG")
+        _write_png(name, to_byte(rgb))
     elif ext == ".pfm":
         _write_pfm(name, rgb, w, h)
     elif ext in (".exr", ".tga"):

@@ -9,7 +9,7 @@ Pieces:
 * prime table + radical inverse in arbitrary bases (device, fori_loop with
   a static digit bound per base);
 * base-2 Sobol' with direction matrices and Owen scrambling via the
-  Laine-Karras hash — the TPU-friendly workhorse;
+  Laine-Karras hash — the device-friendly workhorse;
 * a Sobol' direction-number **generator**: the reference embeds pbrt's
   60k-line constant table (src/core/sobolmatrices.rs, from Joe & Kuo data
   we neither have nor copy).  Instead we *derive* direction numbers: find
@@ -87,7 +87,7 @@ def radical_inverse(base_index: int, n, index_bound: int | None = None):
 
     # accumulate digit_k * base^-(k+1) in float — an integer digit-reversal
     # accumulator overflows uint32 after ~20 base-3 digits.
-    # On TPU the digit loop is UNROLLED (static count) so it fuses into the
+    # On device the digit loop is UNROLLED (static count) so it fuses into the
     # surrounding kernel; a lax.fori_loop would bounce the [N] carry through
     # HBM once per digit.  On CPU unrolling only bloats XLA compile time, so
     # keep the rolled loop there (identical arithmetic, identical results).
@@ -256,7 +256,7 @@ def sobol_sample_u32(index, dim_matrix):
             return acc ^ jnp.where(bit.astype(bool), dim_matrix[i], jnp.uint32(0))
 
         return jax.lax.fori_loop(0, SOBOL_BITS, body, jnp.zeros_like(index))
-    # TPU: unrolled (32 static steps) so the XOR chain fuses into one kernel
+    # Device: unrolled (32 static steps) so the XOR chain fuses into one kernel
     acc = jnp.zeros(index.shape, dtype=jnp.uint32)
     for i in range(SOBOL_BITS):
         bit = (index >> i) & jnp.uint32(1)

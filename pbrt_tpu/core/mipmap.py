@@ -5,7 +5,7 @@ Completes the reference's stub (/root/reference/src/core/mipmap.rs:54-67):
 pyramid built on host, trilinear device lookup, and the 128-entry EWA
 weight LUT with alpha=2 (mipmap.rs:43-52) for anisotropic filtering.
 
-TPU design: the pyramid is packed into a single flat device array plus
+Device design: the pyramid is packed into a single flat device array plus
 per-level (offset, w, h) tables, so one gather kernel serves every level —
 no Python-level branching inside jit.
 """
@@ -178,7 +178,7 @@ class MIPMap:
         ``taps`` trilinear samples are distributed along the MAJOR axis
         weighted by the alpha=2 Gaussian ``EWA_WEIGHT_LUT``
         (/root/reference/src/core/mipmap.rs:43-52).  Fixed tap count keeps
-        the kernel branch-free and jit-static — the TPU formulation of
+        the kernel branch-free and jit-static — the device formulation of
         pbrt's variable-texel EWA loop.
         """
         s = jnp.asarray(s)

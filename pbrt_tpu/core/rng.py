@@ -10,8 +10,8 @@ Two layers:
 
 * Device functions — PCG32 re-expressed as *stateless* uint32-pair arithmetic
   in ``jax.numpy`` so megabatches of lanes can each run their own sequence
-  entirely on the VPU.  TPUs have no native u64, so 64-bit state is a
-  ``(hi, lo)`` pair of uint32 with explicit carries.  All device sampling in
+  in 32-bit lanes.  64-bit state is a ``(hi, lo)`` pair of uint32 with
+  explicit carries, so no kernel needs native u64.  All device sampling in
   the renderer is a pure function of (sequence id, offset) — never of device
   id — which is what makes renders bit-stable across shardings
   (SURVEY.md §5 determinism note).

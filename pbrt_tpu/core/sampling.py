@@ -3,7 +3,7 @@
 The reference's sampling.rs is an empty ``Distribution2D`` stub
 (sampling.rs:17-19); here both Distribution1D and Distribution2D are real,
 stored as prefix-sum CDF device arrays sampled with
-``jnp.searchsorted`` — a vectorized binary search, the natural TPU mapping
+``jnp.searchsorted`` — a vectorized binary search, the natural device mapping
 of pbrt's per-call ``FindInterval``.
 """
 
@@ -29,10 +29,9 @@ def fast_sincos(t):
     """(sin t, cos t) for |t| <= ~pi via quadrant folding + quarter-wave
     polynomials.
 
-    ``jnp.sin``/``jnp.cos`` lower to full-range libm expansions that
-    measured ~0.5 ms per call on a 262k-lane wavefront (v5e) — ~2000
-    VPU-op equivalents; Monte-Carlo warps only need f32 distribution
-    accuracy, so the ~15-op kernel is the right tool on the hot path."""
+    ``jnp.sin``/``jnp.cos`` lower to full-range libm expansions;
+    Monte-Carlo warps only need f32 distribution accuracy, so the ~15-op
+    polynomial is enough on the hot path."""
     q = jnp.round(t * (2.0 / PI))
     r = t - q * (PI / 2)
     z = r * r
@@ -162,9 +161,9 @@ class Distribution1D:
     def sample_continuous(self, u):
         """Returns (x in [0,1], pdf, offset)."""
         if self.n <= 48:
-            # Tiny table (area-light triangle lists, light pickers): the
-            # searchsorted + 3 gathers lower to serialized dynamic-slices
-            # on TPU; comparison-count + where-chains stay fused on the VPU.
+            # Tiny table (area-light triangle lists, light pickers):
+            # comparison-count + where-chains fuse into the surrounding
+            # elementwise kernel instead of searchsorted + 3 gathers.
             offset = jnp.zeros(u.shape, jnp.int32)
             for k in range(1, self.n):
                 offset = offset + (u >= float(self.cdf_np[k])).astype(jnp.int32)

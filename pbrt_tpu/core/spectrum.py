@@ -1,7 +1,7 @@
 """Spectrum representations and color-space conversions.
 
 The default spectrum is RGB, stored as plain length-3 arrays (host numpy) or
-``[..., 3]`` device arrays — the TPU build keeps color as the innermost SoA
+``[..., 3]`` device arrays — the device build keeps color as the innermost SoA
 axis rather than an object per pixel.  Conversion matrices match the
 reference exactly (/root/reference/src/core/spectrum.rs:129-145), which in
 turn match pbrt-v3.

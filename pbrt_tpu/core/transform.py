@@ -18,9 +18,13 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from pbrt_tpu import float_t
+
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class Transform:
@@ -210,16 +214,16 @@ class Transform:
 
 def apply_point(m, p):
     """m: (4,4) device matrix; p: [..., 3] points."""
-    xyz = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3] + m[3, 3]
+    xyz = jnp.matmul(p, m[:3, :3].T, precision=HIGHEST) + m[:3, 3]
+    w = jnp.matmul(p, m[3, :3], precision=HIGHEST) + m[3, 3]
     w = jnp.where(w == 0.0, 1.0, w)
     return xyz / w[..., None]
 
 
 def apply_vector(m, v):
-    return v @ m[:3, :3].T
+    return jnp.matmul(v, m[:3, :3].T, precision=HIGHEST)
 
 
 def apply_normal(m_inv, n):
     """Normals transform by the inverse transpose: n @ m_inv[:3,:3]."""
-    return n @ m_inv[:3, :3]
+    return jnp.matmul(n, m_inv[:3, :3], precision=HIGHEST)

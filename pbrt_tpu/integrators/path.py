@@ -2,7 +2,7 @@
 
 Megabatch design: the bounce loop is unrolled at trace time (max_depth is
 static), every lane carries (throughput, radiance, alive) and dead lanes
-are masked, not compacted — XLA keeps the whole batch dense on the VPU/MXU.
+are masked, not compacted — XLA keeps the whole batch dense.
 Sample dimensions are allocated statically per bounce so every sampler
 value is a pure function of (pixel, sample index, dimension).
 
@@ -81,7 +81,7 @@ class PathIntegrator:
         collects emission only — the loop returns after Le, before NEE;
         pbrt-v3's terminal vertex likewise gets Le only).  Feeds the
         ``render/{closest,shadow}_queries`` counters the bench uses as
-        its Mray/s numerator (VERDICT r4 item 9)."""
+        its Mray/s numerator."""
         return self.max_depth, self.max_depth - 1
 
     def _bsdf_sample(self, params, wo_l, u_lobe, u_b):
@@ -97,15 +97,12 @@ class PathIntegrator:
         """Keep the wavefront permanently in ray-sorted order across
         bounces instead of sort/unsort-ing around every intersect.
 
-        Measured motivation (RESULTS.md r4): TPU gathers run as a serial
-        scalar loop (~30 ns/row), but ``lax.sort`` moves payload operands
-        through its vector compare-exchange network nearly free (+~3 ms
-        for 21 columns at 262k lanes vs ~26 ms for pack+row-gather).  So
-        each bounce pays ONE co-sort that carries the whole path state
+        Each bounce pays ONE co-sort that carries the whole path state
         into the next traversal order, the closest-hit sweep runs
         sort-free, and one final scatter restores lane order for the
         film.  (Shadow sweeps still co-sort per call: their directions
-        diverge from the carry order — r4 A/B.)
+        diverge from the carry order.)  Whether this still pays on the GPU
+        is an open measurement (PERF.md).
         """
         if self._animated:
             return False
@@ -115,8 +112,7 @@ class PathIntegrator:
             return False
         itx = self.c.intersector
         return bool(getattr(itx, "supports_sort_hint", False)) and (
-            getattr(itx, "_pallas", None) is not None
-            or getattr(itx, "n_tri", 0) > 0
+            getattr(itx, "n_tri", 0) > 0
         )
 
     @staticmethod
@@ -293,8 +289,7 @@ class PathIntegrator:
             )
             t_far = jnp.where(alive, INF_T, 0.0).astype(dt)
             # camera rays arrive pixel-major (already a coherent sweep):
-            # skip the Morton sort for bounce 0 — the argsort + gathers
-            # cost ~15 ms per 262k-lane wavefront on chip.  In sorted-carry
+            # skip the Morton sort for bounce 0.  In sorted-carry
             # mode bounce>0 lanes were permuted at the END of the previous
             # bounce, so every intersect runs sort-free.
             hit = self._intersect(
@@ -318,7 +313,7 @@ class PathIntegrator:
             if bounce == 0 and c.tables.get("_flags", {}).get("tex_width"):
                 # camera ray differentials (pbrt-v3 GenerateRayDifferential):
                 # regenerate the +1px-x / +1px-y neighbors from the same
-                # deterministic film/lens samples — a handful of VPU ops,
+                # deterministic film/lens samples — a handful of lane ops,
                 # cheaper than carrying differential state through bounces
                 u_film = sampler.get2(pixel_xy, sample_index, 0)
                 p_film = pixel_xy.astype(dt) + u_film
@@ -352,11 +347,8 @@ class PathIntegrator:
             # emission-only lanes (direct_only: the BSDF-sampled half of
             # EstimateDirect's MIS pair) have now collected their Le — stop.
             # Gated: gather_only is identically False outside direct_only
-            # mode, and the no-op mask measurably perturbed XLA's fusion
-            # of the bounce body (cornell 224 -> 192 Mray/s, the r4
-            # regression VERDICT item 2 — root-caused r5 by HLO diff: the
-            # only non-renamed delta between the r3 and r4 programs was
-            # this mask chain)
+            # mode, and the no-op mask was seen to perturb XLA's fusion of
+            # the bounce body (found by HLO diff)
             if self.direct_only:
                 alive = alive & ~gather_only
 
@@ -400,7 +392,7 @@ class PathIntegrator:
                         ..., None
                     ]
                 )
-                # Merged shadow+carry sort (r5): shadow rays at this bounce
+                # Merged shadow+carry sort: shadow rays at this bounce
                 # originate at the SAME points (si.p +- eps*ng) as the next
                 # bounce's rays, and the carry sort key is origin-Morton-
                 # major — so instead of paying a second full key-sort per
@@ -409,8 +401,9 @@ class PathIntegrator:
                 # carry co-sort and the occlusion sweep runs sort-free in
                 # next-bounce order.  Bit-identical: occlusion is a boolean
                 # any-hit (lane-order invariant) and the NEE add commutes
-                # with the permutation.  PBRT_TPU_SC_MERGED=0 restores the
-                # r4 per-call shadow sorts for A/B instrumentation.
+                # with the permutation.  Off by default
+                # (PBRT_TPU_SC_MERGED=1 turns it on).  Which wins on the GPU
+                # is ROADMAP 3c.
                 merged = self._sc and _os.environ.get(
                     "PBRT_TPU_SC_MERGED", "0"
                 ) not in ("", "0")
@@ -420,11 +413,9 @@ class PathIntegrator:
                         jnp.where(can[..., None], contrib, 0.0),
                     )
                 else:
-                    # r4 behavior: shadow wavefronts get their own sort even
-                    # in sorted-carry mode (carry order follows the BOUNCE
-                    # direction; shadow directions diverge — measured r4
-                    # A/B with the binary walk: unsorted shadows cost MORE
-                    # than the per-call co-sort, 474 vs 508 ms/frame).
+                    # shadow wavefronts get their own sort even in
+                    # sorted-carry mode (carry order follows the BOUNCE
+                    # direction; shadow directions diverge).
                     # PBRT_TPU_SC_NOSORT_SHADOW=1 keeps them unsorted.
                     nee_cols = None
                     shadow_sort = not self._sc or _os.environ.get(
@@ -494,12 +485,7 @@ class PathIntegrator:
                     | (gather_only.astype(jnp.int32) << 2)
                 )
                 # lax.sort CO-SORT: the 21 carry columns ride the sort
-                # network with the keys.  Measured (r4, 262k lanes): this
-                # costs ~3 ms over a bare argsort, where the pack +
-                # [N,21]-row-gather formulation cost ~26 ms — TPU gathers
-                # run as a serial scalar loop, the sort network is vector.
-                from pbrt_tpu.ops.sortnet import co_sort
-
+                # with the keys (one multi-operand sort, no gathers)
                 ops = (keys,
                        L[:, 0], L[:, 1], L[:, 2],
                        beta[:, 0], beta[:, 1], beta[:, 2],
@@ -520,7 +506,7 @@ class PathIntegrator:
                         st,
                         pre[:, 0], pre[:, 1], pre[:, 2],
                     )
-                srt = co_sort(ops, num_keys=1)
+                srt = jax.lax.sort(ops, num_keys=1)
                 L = jnp.stack(srt[1:4], axis=-1)
                 beta = jnp.stack(srt[4:7], axis=-1)
                 prev_bsdf_pdf = srt[7]

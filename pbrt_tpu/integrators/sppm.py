@@ -12,7 +12,7 @@ Per iteration:
      accumulates flux within its radius;
   4. SPPM statistics — per-pixel radius shrink with alpha = 2/3.
 
-TPU design notes: the photon map is never a pointer structure — it is a
+Device design notes: the photon map is never a pointer structure — it is a
 sorted array + searchsorted ranges, and the gather loop is a static 27 x K
 unroll of pure vector ops.  The per-cell photon cap is the one documented
 approximation (log()'d when exceeded); raise ``max_per_cell`` to tighten.

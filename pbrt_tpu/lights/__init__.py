@@ -363,7 +363,7 @@ class DiffuseAreaLight(Light):
             self.area_dist = Distribution1D(areas)
             n = cr / np.maximum(np.linalg.norm(cr, axis=-1, keepdims=True), 1e-12)
             self.tri_n = jnp.asarray(n.astype(float_t))
-            # packed [T, 12] p0|p1|p2|n table for the TPU-friendly row
+            # packed [T, 12] p0|p1|p2|n table for the one-row
             # select in sample_li (gathers from tiny tables serialize)
             self._tri_cols = jnp.asarray(
                 np.concatenate([tri_p0, tri_p1, tri_p2, n], axis=1).astype(float_t)

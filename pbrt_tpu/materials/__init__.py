@@ -1,6 +1,6 @@
 """Material table: pbrt material records -> per-lane BSDF parameters.
 
-pbrt-v3's 15 material plugins reduce on TPU to a compact lobe-parameter
+pbrt-v3's 15 material plugins reduce on device to a compact lobe-parameter
 space (see materials/bsdf.py): every material fills slots
 (kd/ks/kr/kt/roughness/eta/metal_eta/metal_k/sigma) via textures, and a
 type id selects the lobe combination.  Scene build produces a list of
@@ -146,7 +146,7 @@ def build_material(record) -> MaterialEntry:
             },
         )
     if name in ("disney",):
-        log.warning("Material 'disney' approximated by substrate lobes on TPU")
+        log.warning("Material 'disney' approximated by substrate lobes")
         return MaterialEntry(
             B.SUBSTRATE,
             {
@@ -206,7 +206,7 @@ def build_material(record) -> MaterialEntry:
         e.mix_amount = spec_tex("amount", 0.5)
         return e
     if name in ("subsurface", "kdsubsurface"):
-        # TPU-native subsurface = dielectric interface + interior medium
+        # device subsurface = dielectric interface + interior medium
         # traced volumetrically (media/scattering.py); the surface BSDF here
         # mirrors pbrt-v3 SubsurfaceMaterial's specular/microfacet dielectric
         # (materials/subsurface.cpp ComputeScatteringFunctions); the builder

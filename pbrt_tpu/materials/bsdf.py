@@ -3,7 +3,7 @@
 pbrt-v3 dispatches ``Box<dyn BxDF>`` per intersection; here every lane
 carries a material-type id plus SoA parameter arrays (kd, ks, roughness,
 eta, ...) and the lobe formulas are evaluated with mask-select — the
-TPU-native replacement for virtual dispatch (SURVEY.md §2.2 "EP analogue").
+Device replacement for virtual dispatch (SURVEY.md §2.2 "EP analogue").
 
 Local shading frame: z = shading normal; wo/wi in local coordinates.
 Conventions follow pbrt-v3 ch. 8: f is radiance-carrying BRDF value,

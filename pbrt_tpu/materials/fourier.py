@@ -7,12 +7,12 @@ materials at all (SURVEY.md §0).  The model: f(mu_i, mu_o, phi) =
 a_k stored per (zenith-knot i, zenith-knot j) pair and interpolated with a
 4x4 Catmull-Rom spline stencil.
 
-TPU-native redesign of the data layout: pbrt stores ragged coefficient runs
+Device redesign of the data layout: pbrt stores ragged coefficient runs
 (offset+length per knot pair) and walks them scalar-wise.  Here the ragged
 table is padded ONCE at load time into a dense ``[nMu, nMu, nChannels, M]``
 array (M = min(mMax, order cap)), so evaluation over a wavefront is a pair
 of searchsorted's, a 4x4 weighted dense gather, and one [N, M] @ cos(k phi)
-contraction — no pointer chasing, MXU-friendly.  The order cap (default
+contraction — no pointer chasing, one matrix product.  The order cap (default
 256) truncates only the sharpest near-specular tables; the energy dropped
 is logged at load.
 
@@ -41,9 +41,13 @@ import struct
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from pbrt_tpu import INV_PI, PI, float_t
+
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 log = logging.getLogger("pbrt_tpu")
 
@@ -317,7 +321,7 @@ def fourier_f(tbl, wo, wi):
     m = ak.shape[-1]
     ks = jnp.arange(m, dtype=wo.dtype)
     cosk = jnp.cos(ks[None, :] * phi[:, None])  # [N,M]
-    vals = jnp.einsum("ncm,nm->nc", ak, cosk)
+    vals = jnp.einsum("ncm,nm->nc", ak, cosk, precision=HIGHEST)
     y = jnp.maximum(vals[:, 0], 0.0)
     scale = 1.0 / jnp.maximum(jnp.abs(mu_i), 1e-6)
     if tbl["is_y_rb"]:

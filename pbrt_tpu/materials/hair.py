@@ -3,7 +3,7 @@
 The reference names no materials at all (wathiede/pbrt has no Material types,
 SURVEY.md §0); pbrt-v3 — whose capability surface the reference commits to —
 implements this in src/materials/hair.{h,cpp}.  The model is a near-perfect
-fit for TPU: every term (longitudinal Gaussian-on-sphere Mp, azimuthal
+fit for wide devices: every term (longitudinal Gaussian-on-sphere Mp, azimuthal
 trimmed-logistic Np, attenuation Ap) is closed-form elementwise math over the
 wavefront — no tables, no recursion, no divergence.
 

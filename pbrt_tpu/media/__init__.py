@@ -9,7 +9,7 @@ make_medium api.rs:945-947 ``unimplemented!``).  Round-1 scope:
   by **delta tracking** and transmittance by **ratio tracking** (the
   pbrt-v3 GridDensityMedium::Sample/Tr algorithms, src/media/grid.cpp),
   expressed as fixed-trip-count ``lax.scan`` loops with alive masks so the
-  whole wavefront tracks in lockstep on the VPU;
+  whole wavefront tracks in lockstep;
 * Henyey-Greenstein phase function sampling/eval, batched.
 
 Null-collision loops need an unbounded uniform stream; :func:`make_track_rng`

@@ -3,7 +3,7 @@
 pbrt-v3 ships these in core/medium.cpp (GetMediumScatteringProperties) and
 uses a tabulated BSSRDF inversion (SubsurfaceFromDiffuse).  The reference
 has neither (its Medium layer is a stub, medium.rs:24-33).  This framework
-renders subsurface materials TPU-natively as *volumetric transport*: a
+renders subsurface materials on the device as *volumetric transport*: a
 dielectric interface plus an interior homogeneous medium traced by the
 volpath integrator — no BSSRDF tables, no importance-sampled dipole probes
 (pointer-chasing probe rays would be hostile to the wavefront design), just

@@ -2,7 +2,7 @@
 
 The reference parses shutter times and keeps the 2-slot animated
 ``TransformSet`` (api.rs:157-198) but never renders; pbrt-v3 interpolates
-the transform at each ray's time and transforms the ray.  The TPU
+the transform at each ray's time and transforms the ray.  The device
 formulation avoids per-lane matrix work entirely: the host bakes K
 world-space vertex keyframes per animated shape (decompose + slerp,
 core/animated.py — K adapts to the rotation angle so the per-segment
@@ -25,6 +25,9 @@ import jax.numpy as jnp
 
 from pbrt_tpu import float_t
 from pbrt_tpu.ops.intersect import KIND_NONE, KIND_TRI, RAY_EPS
+
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def time_weights(time_norm, n_keys: int):
@@ -191,7 +194,7 @@ class AnimatedTriIntersector:
         def blend_prim(pid):
             """One gather of the prim's [K, 9] keys, blended -> [N, 9]."""
             ck = self.cols[pid]  # [N, K, 9]
-            return jnp.einsum("nk,nkj->nj", w, ck)
+            return jnp.einsum("nk,nkj->nj", w, ck, precision=HIGHEST)
 
         def cond(st):
             return jnp.any(st[0] < m)

@@ -5,7 +5,7 @@ spheres (object-space quadratic with z/phi clipping, mirroring the
 reference's ``quadratic`` lib.rs:181-203 and pbrt-v3 §3.2).
 
 This module provides the *brute-force* path: primitives are swept in
-VMEM-sized chunks with ``lax.scan`` keeping a running closest hit, so
+fixed-size chunks with ``lax.scan`` keeping a running closest hit, so
 memory is O(N x CHUNK) regardless of scene size.  The BVH path
 (``pbrt_tpu.accel``) shares the same hit-record contract and replaces the
 sweep for large scenes.
@@ -24,6 +24,9 @@ import jax
 import jax.numpy as jnp
 
 from pbrt_tpu import float_t
+
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 TRI_CHUNK = 256
 SPH_CHUNK = 64
@@ -93,8 +96,8 @@ def sphere_intersect_chunk(o, d, t_max, w2o, radius, z_min, z_max, phi_max, vali
     # object-space rays: [N,K,3]
     rot = w2o[:, :3, :3]  # [K,3,3]
     trans = w2o[:, :3, 3]  # [K,3]
-    oo = jnp.einsum("kij,nj->nki", rot, o) + trans[None]
-    od = jnp.einsum("kij,nj->nki", rot, d)
+    oo = jnp.einsum("kij,nj->nki", rot, o, precision=HIGHEST) + trans[None]
+    od = jnp.einsum("kij,nj->nki", rot, d, precision=HIGHEST)
     a = jnp.sum(od * od, axis=-1)
     b = 2.0 * jnp.sum(oo * od, axis=-1)
     c = jnp.sum(oo * oo, axis=-1) - (radius * radius)[None]

@@ -1,10 +1,9 @@
-"""Component-SoA intersection sweep — TPU-layout-optimal brute force.
+"""Component-SoA intersection sweep — flat-vector brute force.
 
 The [N, K, 3] formulation in ops/intersect.py puts the 3-vector on the
-minor (lane) axis, so TPU tiles are ~2% occupied.  Here every operand is a
-flat [N] vector (lanes fully packed) and the primitive loop is a
-``lax.scan`` over *stacked per-primitive scalars* — each iteration is ~60
-fully-dense VPU ops.  Ideal for small-to-medium primitive counts; the BVH
+minor axis.  Here every operand is a flat [N] vector and the primitive
+loop is a ``lax.scan`` over *stacked per-primitive scalars* — each
+iteration is ~60 dense elementwise ops.  Ideal for small-to-medium primitive counts; the BVH
 covers large ones.
 """
 
@@ -176,7 +175,7 @@ class SoABruteForceIntersector:
 
     def _tri_sweep_unrolled_anyhit(self, o, d, tmax):
         """Shadow-ray sweep: no best-hit bookkeeping (prim/b0/b1/t selects
-        drop out), just a running occlusion mask — ~30% fewer VPU ops per
+        drop out), just a running occlusion mask — ~30% fewer elementwise ops per
         triangle than the closest-hit sweep."""
         ox, oy, oz = _split3(o)
         dx, dy, dz = _split3(d)

@@ -1,11 +1,10 @@
-"""TPU-friendly small-table reads (shared by builder, lights, sampling).
+"""Small-table reads (shared by builder, lights, sampling).
 
-XLA lowers gathers from small tables to serialized dynamic-slices on
-TPU, which measured ~20ms per bounce on a 262k-lane wavefront vs <2ms
-for a one-hot matmul; the matmul in turn pads K to 128 and runs 6-pass
-f32 emulation, so for tiny tables (a Cornell box: 14 rows) a fused
-where-chain wins again (~2.5x, measured on v5e).  Thresholds below pick
-the regime per table size.
+Three regimes by table size: a fused where-chain for tiny tables (a
+Cornell box: 14 rows), a one-hot matmul at HIGHEST precision for small
+ones, and a real gather for large ones.  The thresholds were chosen on
+the previous accelerator; whether the GPU needs anything but the gather
+is an open measurement (PERF.md).
 """
 
 from __future__ import annotations
@@ -18,9 +17,9 @@ ONE_HOT_MAX_ROWS = 1024
 
 
 def select_rows(cols, idx):
-    """Row-select ``cols[idx]`` ([T, C], [N] -> [N, C]), TPU-friendly.
+    """Row-select ``cols[idx]`` ([T, C], [N] -> [N, C]).
 
-    Tiny tables: fused where-chain (exact, no MXU padding waste).
+    Tiny tables: fused where-chain (exact, no padded matmul).
     Small tables: one-hot x matmul (HIGHEST precision — f32-accurate).
     Large tables: real gather (the BVH regime, where prim ids are
     already sorted/coherent).

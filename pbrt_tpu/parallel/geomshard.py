@@ -11,14 +11,14 @@ the triangle tables.  A 2D (dp, tp) mesh then gives:
     the winning primitive's attributes (p0/p1/p2/uv/n/mat/light).
 
 This is the all-reduce formulation of "ray re-routing": every collective
-is a dense XLA reduction over ICI (no per-ray routing tables), which
-scales compute perfectly at the cost of O(rays) reduction bandwidth per
-bounce — but rays stay replicated over tp.
+is a dense XLA reduction across the devices (no per-ray routing tables),
+which scales compute perfectly at the cost of O(rays) reduction bandwidth
+per bounce — but rays stay replicated over tp.
 
 The **ring formulation** (:func:`ring_closest_hit`,
 :func:`make_ring_path_fn`) shards the rays over tp as well: each device
 owns rays/tp lanes, and the ray packet (origins, directions, running
-best-hit record) rotates around the ICI ring via ``ppermute``, visiting
+best-hit record) rotates around a device ring via ``ppermute``, visiting
 every geometry slice exactly once.  Same images (identical lexicographic
 (t, gid) tie-breaks), tp x fewer lanes per device, and neighbor-only
 point-to-point traffic instead of all-reduces — the SURVEY §2.2 "ring
@@ -29,8 +29,6 @@ so results are invariant to the shard count.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 
@@ -44,30 +42,17 @@ INF_T = 1e8
 
 
 def shard_triangle_arrays(tri_data, tri_mat, tri_light, n_shards: int,
-                          bvh: bool = False, pallas: bool = False):
+                          bvh: bool = False):
     """Pad + split triangle SoA into [n_shards, T/n_shards, ...] arrays.
 
     ``bvh=True`` additionally builds a **per-shard BVH** (native binned
     SAH, accel/bvh.py) and reorders each shard's triangles into its BVH's
-    DFS-leaf order, adding node arrays ``bvh_min/bvh_max [S, M, 3]``,
-    ``bvh_skip/bvh_first/bvh_count [S, M]`` and node counts ``nn [S]`` —
+    leaf order, adding the traversal tables of ``ops/traverse.py``
+    stacked over the shard dim — ``bvh_box [S, M, 8]``, ``bvh_link
+    [S, M, 4]``, ``bvh_tris [S, T/S, 9]`` — and node counts ``nn [S]``:
     the production formulation for BASELINE config 5 (1M-triangle scenes
     sharded over tp), replacing the O(rays x tris) brute sweep.
-
-    ``pallas=True`` (implies ``bvh``) additionally packs each shard's tree
-    into the streaming Pallas kernel layout (ops/stream_bvh.py
-    ``pack_stream_tables``), stacked over the shard dim: ``pk_nodes
-    [S,C,NP,16]``, ``pk_tris [S,C,LP,128]``, ``pk_roots [S,C]``,
-    ``pk_clmin/pk_clmax [S,C,3]``, ``pk_s2p [S,C*LP*8]``, plus a
-    ``leaf_tag [S,16]`` shape-marker carrying the static leaf width.
-    On accelerator backends ``local_closest_hit`` then traverses each
-    shard with the production streaming kernel inside ``shard_map`` (the
-    r3 XLA while_loop walk measured ~0.01 Mray/s on TPU; the kernel is
-    the only viable multi-chip path) — the XLA walk remains the CPU/test
-    formulation.
     """
-    if pallas:
-        bvh = True
     t = tri_data.count
     per = -(-t // n_shards)
     total = per * n_shards
@@ -104,142 +89,42 @@ def shard_triangle_arrays(tri_data, tri_mat, tri_light, n_shards: int,
         return out
 
     from pbrt_tpu.accel.bvh import build_bvh
-
-    per_prim_keys = [k for k in out if k not in ()]
-    # the stream kernel packs 16-triangle leaves (2 x 128-lane rows);
-    # leaf width must match between the packed tables and the XLA-walk
-    # unroll, so the tree itself is built at the chosen width
-    leaf = 16 if pallas else _SHARD_LEAF
-    mins_l, maxs_l, skips_l, firsts_l, counts_l, nns = [], [], [], [], [], []
-    for s in range(n_shards):
-        v = int(out["valid"][s].sum())
-        if v == 0:
-            mins_l.append(np.zeros((1, 3), np.float32))
-            maxs_l.append(np.full((1, 3), -1.0, np.float32))
-            skips_l.append(np.ones(1, np.int32))
-            firsts_l.append(np.zeros(1, np.int32))
-            counts_l.append(np.zeros(1, np.int32))
-            nns.append(0)
-            continue
-        mins, maxs, skips, firsts, counts, perm = build_bvh(
-            out["p0"][s][:v], out["p1"][s][:v], out["p2"][s][:v], leaf
-        )
-        order = np.concatenate([perm, np.arange(v, per)])
-        for k in per_prim_keys:
-            out[k][s] = out[k][s][order]
-        mins_l.append(mins)
-        maxs_l.append(maxs)
-        skips_l.append(skips)
-        firsts_l.append(firsts)
-        counts_l.append(counts)
-        nns.append(len(mins))
-
-    m_pad = max(8, max(len(m) for m in mins_l))
-
-    def pad_nodes(arrs, fill, dtype):
-        res = np.full((n_shards, m_pad) + arrs[0].shape[1:], fill, dtype=dtype)
-        for s, a in enumerate(arrs):
-            res[s, : len(a)] = a
-        return res
-
-    out["bvh_min"] = pad_nodes(mins_l, np.inf, np.float32)
-    out["bvh_max"] = pad_nodes(maxs_l, -np.inf, np.float32)
-    out["bvh_skip"] = pad_nodes(skips_l, m_pad, np.int32)
-    out["bvh_first"] = pad_nodes(firsts_l, 0, np.int32)
-    out["bvh_count"] = pad_nodes(counts_l, 0, np.int32)
-    out["nn"] = np.asarray(nns, dtype=np.int32)
-    if not pallas:
-        return out
-
-    # -- per-shard streaming-kernel tables, stacked over the shard dim ----
-    from pbrt_tpu.ops.stream_bvh import pack_stream_tables
+    from pbrt_tpu.ops.traverse import pack_nodes
 
     packs = []
     for s in range(n_shards):
         v = int(out["valid"][s].sum())
-        if v == 0 or nns[s] == 0:
-            packs.append(None)
+        if v == 0:
+            # one empty node; nn = 0 ends the walk before it starts
+            packs.append((pack_nodes(
+                np.zeros((1, 3)), np.full((1, 3), -1.0), [1], [0], [0]
+            ), 0))
             continue
-        packs.append(
-            pack_stream_tables(
-                mins_l[s], maxs_l[s], skips_l[s], firsts_l[s], counts_l[s],
-                out["p0"][s][:v].astype(np.float32),
-                out["p1"][s][:v].astype(np.float32),
-                out["p2"][s][:v].astype(np.float32),
-                leaf_slots=leaf,
-                # BVH8 wide tables by default (stream_traverse infers the
-                # walk from the node-row width); PBRT_TPU_WIDE=0 falls
-                # back to the binary walk
-                wide=os.environ.get("PBRT_TPU_WIDE", "1") not in ("", "0"),
-            )
+        mins, maxs, skips, firsts, counts, perm = build_bvh(
+            out["p0"][s][:v], out["p1"][s][:v], out["p2"][s][:v], _SHARD_LEAF
         )
-    c_pad = max(1, max((p["nodes"].shape[0] for p in packs if p), default=1))
-    np_pad = max(8, max((p["nodes"].shape[1] for p in packs if p), default=8))
-    lp_pad = max(8, max((p["tris"].shape[1] for p in packs if p), default=8))
-    spc = lp_pad * 8  # slots per cluster at the padded row count
-    node_cols = next(
-        (p["nodes"].shape[2] for p in packs if p), 16
-    )  # 16 binary / 64 wide (BVH8)
-    pk_nodes = np.zeros((n_shards, c_pad, np_pad, node_cols), np.float32)
-    pk_tris = np.zeros((n_shards, c_pad, lp_pad, 128), np.float32)
-    # padded roots are empty-leaf codes (-(0*64 + 0 + 1) = -1, count 0):
-    # even if a padded cluster were ever selected, its walk is a no-op
-    # single leaf test instead of a traversal of zero-filled node rows
-    pk_roots = np.full((n_shards, c_pad), -1, np.int32)
-    # padded clusters get cl_min = cl_max = +inf: every slab quotient on
-    # an axis with positive inv-direction is +inf, so t_near = +inf fails
-    # t_near < t_max and the candidate phase skips them on every block.
-    # (Inverted bounds -inf/+inf would do the OPPOSITE: the min/max slab
-    # test yields t_near = -inf / t_far = +inf, i.e. every ray "hits" —
-    # the r4 bug flagged by ADVICE.md which could walk a zero-filled
-    # padded cluster forever.)
-    pk_clmin = np.full((n_shards, c_pad, 3), np.inf, np.float32)
-    pk_clmax = np.full((n_shards, c_pad, 3), np.inf, np.float32)
-    pk_s2p = np.zeros((n_shards, c_pad, spc), np.int32)
-    for s, p in enumerate(packs):
-        if p is None:
-            continue
-        c_s, np_s = p["nodes"].shape[0], p["nodes"].shape[1]
-        lp_s = p["tris"].shape[1]
-        pk_nodes[s, :c_s, :np_s] = p["nodes"]
-        pk_tris[s, :c_s, :lp_s] = p["tris"]
-        pk_roots[s, :c_s] = p["roots"]
-        pk_clmin[s, :c_s] = p["cl_min"]
-        pk_clmax[s, :c_s] = p["cl_max"]
-        # re-lay slot ids onto the padded slots-per-cluster stride
-        old_spc = p["slots_per_cluster"]
-        pk_s2p[s, :c_s, :old_spc] = p["slot_to_prim"].reshape(
-            c_s, old_spc
-        ).astype(np.int32)
-    out["pk_nodes"] = pk_nodes
-    out["pk_tris"] = pk_tris
-    out["pk_roots"] = pk_roots
-    out["pk_clmin"] = pk_clmin
-    out["pk_clmax"] = pk_clmax
-    out["pk_s2p"] = pk_s2p.reshape(n_shards, c_pad * spc)
-    # static leaf width rides as an array SHAPE (shard dicts cross the
-    # shard_map boundary as pytrees of arrays, so a plain int can't)
-    out["leaf_tag"] = np.zeros((n_shards, leaf), np.float32)
-    # packed winner-attribute rows: TPU gathers cost ~30 ns per ROW nearly
-    # independent of width (RESULTS r4), so the hit-attribute lookup is
-    # ONE [N,27] row gather instead of ~12 separate array gathers.
-    # Layout: p0 p1 p2 | n0 n1 n2 | uv0 uv1 uv2 | mat light gid
-    # gid/mat/light ride as f32: integers are exact only below 2^24, so
-    # guard the scene scale where the packing would silently corrupt ids
-    # (the 2^30 PAD gid is exactly representable and stays allowed)
-    assert t < (1 << 24), (
-        "attr_rows packs gids as f32; scenes over 2^24 prims need an "
-        "int32 side column"
-    )
-    out["attr_rows"] = np.concatenate([
-        out["p0"], out["p1"], out["p2"],
-        out["n0"], out["n1"], out["n2"],
-        out["uv0"], out["uv1"], out["uv2"],
-        out["mat"][..., None].astype(np.float32),
-        out["light"][..., None].astype(np.float32),
-        # gid pads with 2^30 (exactly representable in f32)
-        out["gid"][..., None].astype(np.float32),
-    ], axis=-1).astype(np.float32)
+        order = np.concatenate([perm, np.arange(v, per)])
+        for k in out:
+            out[k][s] = out[k][s][order]
+        packs.append(
+            (pack_nodes(mins, maxs, skips, firsts, counts), len(mins))
+        )
+
+    m_pad = max(8, max(len(box) for (box, _), _ in packs))
+
+    def stack_nodes(col):
+        rows = [p[col] for p, _ in packs]
+        res = np.zeros((n_shards, m_pad, rows[0].shape[1]), rows[0].dtype)
+        for s, r in enumerate(rows):
+            res[s, : len(r)] = r
+        return res
+
+    out["bvh_box"] = stack_nodes(0)
+    out["bvh_link"] = stack_nodes(1)
+    out["bvh_tris"] = np.concatenate(
+        [out["p0"], out["p1"], out["p2"]], axis=-1
+    ).astype(np.float32)
+    out["nn"] = np.asarray([nn for _, nn in packs], dtype=np.int32)
     return out
 
 
@@ -247,165 +132,36 @@ def shard_triangle_arrays(tri_data, tri_mat, tri_light, n_shards: int,
 _SHARD_LEAF = 4
 
 
-def _local_bvh_hit(shard, o, d, t_max):
-    """Skip-link BVH closest hit over this device's slice (XLA while_loop).
+def _local_bvh_hit(shard, o, d, t_max, platform=None):
+    """Skip-link BVH closest hit over this device's slice
+    (``ops/traverse.py``: the GPU kernel or the XLA walk).
 
     Lexicographic (t, gid) tie-break inside the walk, so the winner is
     invariant to which shard (and hence which traversal order) tests a
     triangle — required for shard-count-invariant images.
     Returns (t [N], local_idx [N], b0, b1) like :func:`local_closest_hit`.
     """
-    nmin, nmax = shard["bvh_min"], shard["bvh_max"]
-    skip, first, count = shard["bvh_skip"], shard["bvh_first"], shard["bvh_count"]
-    nn = shard["nn"][0]
-    # static leaf-test unroll width: matches the width the shard's tree
-    # was built with (16 when packed Pallas tables ride along, else 4)
-    leaf_w = (
-        shard["leaf_tag"].shape[-1] if "leaf_tag" in shard else _SHARD_LEAF
+    from pbrt_tpu.ops.traverse import BVHTables, traverse
+
+    tables = BVHTables(
+        shard["bvh_box"], shard["bvh_link"], shard["bvh_tris"], shard["nn"]
     )
-    p0s, p1s, p2s = shard["p0"], shard["p1"], shard["p2"]
-    gids = shard["gid"]
-    valids = shard["valid"]
-    n = o.shape[0]
-    m = nmin.shape[0]
-    t_tot = p0s.shape[0]
-
-    def safe_inv(v):
-        sign = jnp.where(v < 0.0, -1.0, 1.0)
-        return jnp.clip(sign / jnp.maximum(jnp.abs(v), 1e-20), -1e30, 1e30)
-
-    inv = safe_inv(d)
-
-    def cond(st):
-        return jnp.any(st[0] < nn)
-
-    def body(st):
-        node, bt, bi, bg, b0c, b1c = st
-        active = node < nn
-        ni = jnp.minimum(node, m - 1)
-        t0 = (nmin[ni] - o) * inv
-        t1 = (nmax[ni] - o) * inv
-        tn = jnp.max(jnp.minimum(t0, t1), axis=-1)
-        tf = jnp.min(jnp.maximum(t0, t1), axis=-1)
-        box_hit = active & (tn <= tf) & (tf > RAY_EPS) & (tn < bt)
-        cnt = count[ni]
-        is_leaf = cnt > 0
-        fst = first[ni]
-        for k in range(leaf_w):
-            pid = jnp.minimum(fst + k, t_tot - 1)
-            ok0 = box_hit & is_leaf & (k < cnt) & valids[pid]
-            p0, p1, p2 = p0s[pid], p1s[pid], p2s[pid]
-            e1 = p1 - p0
-            e2 = p2 - p0
-            pv = jnp.cross(d, e2)
-            det = jnp.sum(e1 * pv, axis=-1)
-            inv_det = jnp.where(
-                jnp.abs(det) > 1e-12, 1.0 / jnp.where(det == 0, 1.0, det), 0.0
-            )
-            tv = o - p0
-            b0 = jnp.sum(tv * pv, axis=-1) * inv_det
-            qv = jnp.cross(tv, e1)
-            b1 = jnp.sum(d * qv, axis=-1) * inv_det
-            tt = jnp.sum(e2 * qv, axis=-1) * inv_det
-            g = gids[pid]
-            better = (tt < bt) | ((tt == bt) & (g < bg))
-            ok = (
-                ok0
-                & (jnp.abs(det) > 1e-12)
-                & (b0 >= 0.0)
-                & (b1 >= 0.0)
-                & (b0 + b1 <= 1.0)
-                & (tt > RAY_EPS)
-                & better
-            )
-            bi = jnp.where(ok, pid, bi)
-            bg = jnp.where(ok, g, bg)
-            b0c = jnp.where(ok, b0, b0c)
-            b1c = jnp.where(ok, b1, b1c)
-            bt = jnp.where(ok, tt, bt)
-        descend = box_hit & ~is_leaf
-        nxt = jnp.where(descend, ni + 1, skip[ni])
-        nxt = jnp.where(active, nxt, nn)
-        return nxt, bt, bi, bg, b0c, b1c
-
-    init = (
-        jnp.zeros((n,), jnp.int32),
-        jnp.broadcast_to(t_max, (n,)).astype(o.dtype),
-        jnp.full((n,), -1, jnp.int32),
-        jnp.full((n,), 2**30, jnp.int32),
-        jnp.zeros((n,), o.dtype),
-        jnp.zeros((n,), o.dtype),
-    )
-    _, bt, bi, _, b0c, b1c = jax.lax.while_loop(cond, body, init)
-    return bt, bi, b0c, b1c
-
-
-def _local_stream_hit(shard, o, d, t_max, interpret=False, bary=False):
-    """Per-shard closest hit through the production streaming Pallas
-    kernel (ops/stream_bvh.py) — runs INSIDE ``shard_map``, so each device
-    walks only its own cluster tables.
-
-    The kernel carries only (t, slot).  ``bary=True`` re-derives
-    barycentrics here by projecting the hit point onto the dual basis of
-    the winning triangle's edges (tests); production callers leave it
-    False — the winner's b0/b1 are derived AFTER the tp-reduction from
-    the broadcast attribute rows (interaction_from_reduced), saving three
-    [N,3] row gathers per local hit.
-    Returns (t, local_idx, b0, b1) like :func:`local_closest_hit`
-    (b0/b1 = None when ``bary=False``).
-    """
-    from pbrt_tpu.ops.stream_bvh import stream_traverse
-
-    n = o.shape[0]
-    tmax = jnp.broadcast_to(t_max, (n,)).astype(o.dtype)
-    t, slot = stream_traverse(
-        shard["pk_nodes"], shard["pk_tris"], shard["pk_roots"],
-        shard["pk_clmin"], shard["pk_clmax"], o, d, tmax,
-        any_hit=False, leaf_slots=shard["leaf_tag"].shape[-1],
-        interpret=interpret,
-    )
-    idx = jnp.where(slot >= 0, shard["pk_s2p"][jnp.maximum(slot, 0)], -1)
-    hitm = idx >= 0
-    t_out = jnp.where(hitm, t, tmax)
-    if not bary:
-        return t_out, idx.astype(jnp.int32), None, None
-    safe = jnp.maximum(idx, 0)
-    p0, p1, p2 = shard["p0"][safe], shard["p1"][safe], shard["p2"][safe]
-    p = o + d * t[..., None]
-    e1, e2, vp = p1 - p0, p2 - p0, p - p0
-    d11 = jnp.sum(e1 * e1, -1)
-    d12 = jnp.sum(e1 * e2, -1)
-    d22 = jnp.sum(e2 * e2, -1)
-    den = d11 * d22 - d12 * d12
-    inv_den = jnp.where(
-        jnp.abs(den) > 1e-20, 1.0 / jnp.where(den == 0.0, 1.0, den), 0.0
-    )
-    v1 = jnp.sum(vp * e1, -1)
-    v2 = jnp.sum(vp * e2, -1)
-    b0 = (d22 * v1 - d12 * v2) * inv_den
-    b1 = (d11 * v2 - d12 * v1) * inv_den
-    return (
-        t_out,
-        idx.astype(jnp.int32),
-        jnp.where(hitm, b0, 0.0),
-        jnp.where(hitm, b1, 0.0),
+    return traverse(
+        platform or jax.default_backend(), tables, o, d, t_max,
+        any_hit=False, leaf_size=_SHARD_LEAF, tie_ids=shard["gid"],
     )
 
 
-def local_closest_hit(shard, o, d, t_max, chunk=256):
+def local_closest_hit(shard, o, d, t_max, chunk=256, platform=None):
     """Closest hit of rays [N] against this device's triangle slice.
 
     Returns (t [N], local_idx [N], b0, b1); t = t_max when missed.
-    Dispatch (trace-time): streaming Pallas kernel when the shard carries
-    packed cluster tables (``pallas=True``) and the backend is an
-    accelerator; otherwise the per-shard XLA BVH walk (``bvh=True``) —
-    the CPU/test formulation; else the brute sweep (reference
+    Shards built with ``bvh=True`` walk their own BVH (GPU kernel or XLA
+    walk, by ``platform``); otherwise a brute sweep (the reference
     formulation).
     """
-    if "pk_nodes" in shard and jax.default_backend() not in ("cpu",):
-        return _local_stream_hit(shard, o, d, t_max)
-    if "bvh_skip" in shard:
-        return _local_bvh_hit(shard, o, d, t_max)
+    if "bvh_box" in shard:
+        return _local_bvh_hit(shard, o, d, t_max, platform)
     p0s, p1s, p2s = shard["p0"], shard["p1"], shard["p2"]
     t_total = p0s.shape[0]
     chunk = min(chunk, t_total)
@@ -471,23 +227,9 @@ def allreduce_closest(shard, t_local, idx_local, b0, b1, axis="tp"):
 
     Tie-break: minimum (t, global_id) lexicographically via pmin on a
     fused key, making the result shard-count invariant.
-
-    When the shard carries packed ``attr_rows`` (pallas tables) the hit
-    attributes come from ONE [N,27] row gather + one psum, replacing ~12
-    separate array gathers (TPU gathers cost per ROW, ~flat in width);
-    b0/b1 may then be None — barycentrics are derived downstream from the
-    broadcast winner rows (interaction_from_reduced).
     """
     safe = jnp.maximum(idx_local, 0)
-    rows = None
-    if "attr_rows" in shard:
-        rows = shard["attr_rows"][safe]
-        gid = jnp.where(
-            idx_local >= 0, jnp.round(rows[:, 26]).astype(jnp.int32),
-            jnp.int32(2**30),
-        )
-    else:
-        gid = jnp.where(idx_local >= 0, shard["gid"][safe], jnp.int32(2**30))
+    gid = jnp.where(idx_local >= 0, shard["gid"][safe], jnp.int32(2**30))
     t_global = jax.lax.pmin(t_local, axis)
     # winner: my t equals the global min AND my gid is the min among ties
     is_tie = t_local <= t_global + 0.0
@@ -499,25 +241,6 @@ def allreduce_closest(shard, t_local, idx_local, b0, b1, axis="tp"):
     def bcast(x, fill=0.0):
         return jax.lax.psum(jnp.where(winner[..., None] if x.ndim > 1 else winner, x, fill), axis)
 
-    if rows is not None:
-        w = bcast(rows)  # one [N,27] collective broadcast of the winner
-        out = {
-            "t": t_global,
-            "hit": hit,
-            "prim": jax.lax.psum(jnp.where(winner, gid, 0), axis),
-            "b0": None if b0 is None else jax.lax.psum(
-                jnp.where(winner, b0, 0.0), axis),
-            "b1": None if b1 is None else jax.lax.psum(
-                jnp.where(winner, b1, 0.0), axis),
-            "p0": w[:, 0:3], "p1": w[:, 3:6], "p2": w[:, 6:9],
-            "n0": w[:, 9:12], "n1": w[:, 12:15], "n2": w[:, 15:18],
-            "uv0": w[:, 18:20], "uv1": w[:, 20:22], "uv2": w[:, 22:24],
-            "mat": jnp.round(w[:, 24]).astype(jnp.int32)
-            + jnp.where(hit, 0, -1),
-            "light": jnp.round(w[:, 25]).astype(jnp.int32)
-            + jnp.where(hit, 0, -1),
-        }
-        return out
     out = {
         "t": t_global,
         "hit": hit,
@@ -541,38 +264,20 @@ def allreduce_closest(shard, t_local, idx_local, b0, b1, axis="tp"):
     return out
 
 
-def sharded_occluded(shard, o, d, t_max, axis="tp"):
-    t_local, idx, _, _ = local_closest_hit(shard, o, d, t_max)
+def sharded_occluded(shard, o, d, t_max, axis="tp", platform=None):
+    t_local, idx, _, _ = local_closest_hit(shard, o, d, t_max,
+                                           platform=platform)
     any_local = idx >= 0
     return jax.lax.psum(any_local.astype(jnp.int32), axis) > 0
 
 
 def interaction_from_reduced(hit, o, d):
     """Reduced hit record -> SoA interaction (like compute_interaction but
-    from the broadcast winner attributes; no further gathers needed).
-
-    ``b0``/``b1`` = None (streaming-kernel shards) derives barycentrics by
-    projecting the hit point onto the dual basis of the winner's edges —
-    the same scheme as the single-chip path (compute_interaction)."""
+    from the broadcast winner attributes; no further gathers needed)."""
     t = hit["t"]
     p = o + d * t[..., None]
     b0 = hit["b0"]
     b1 = hit["b1"]
-    if b0 is None:
-        e1 = hit["p1"] - hit["p0"]
-        e2 = hit["p2"] - hit["p0"]
-        vp = p - hit["p0"]
-        d11 = jnp.sum(e1 * e1, -1)
-        d12 = jnp.sum(e1 * e2, -1)
-        d22 = jnp.sum(e2 * e2, -1)
-        den = d11 * d22 - d12 * d12
-        inv_den = jnp.where(
-            jnp.abs(den) > 1e-20, 1.0 / jnp.where(den == 0.0, 1.0, den), 0.0
-        )
-        v1 = jnp.sum(vp * e1, -1)
-        v2 = jnp.sum(vp * e2, -1)
-        b0 = (d22 * v1 - d12 * v2) * inv_den
-        b1 = (d11 * v2 - d12 * v1) * inv_den
     b2 = 1.0 - b0 - b1
     ng = jnp.cross(hit["p1"] - hit["p0"], hit["p2"] - hit["p0"])
     ng = ng / jnp.maximum(jnp.linalg.norm(ng, axis=-1, keepdims=True), 1e-12)
@@ -606,7 +311,8 @@ def interaction_from_reduced(hit, o, d):
 _REC_VEC = ("p0", "p1", "p2", "uv0", "uv1", "uv2", "n0", "n1", "n2")
 
 
-def ring_closest_hit(shard, o, d, t_max, tp_size: int, axis="tp"):
+def ring_closest_hit(shard, o, d, t_max, tp_size: int, axis="tp",
+                     platform=None):
     """Closest hit with rays AND triangles both sharded over ``axis``.
 
     Each of ``tp_size`` steps intersects the packet currently resident on
@@ -639,12 +345,9 @@ def ring_closest_hit(shard, o, d, t_max, tp_size: int, axis="tp"):
 
     for _ in range(tp_size):
         t_l, idx_l, b0, b1 = local_closest_hit(
-            shard, packet["o"], packet["d"], packet["tmax"]
+            shard, packet["o"], packet["d"], packet["tmax"],
+            platform=platform,
         )
-        derive_bary = b0 is None
-        if derive_bary:
-            b0 = jnp.zeros((n,), dt)
-            b1 = jnp.zeros((n,), dt)
         safe = jnp.maximum(idx_l, 0)
         gid_l = jnp.where(idx_l >= 0, shard["gid"][safe], jnp.int32(2**30))
         better = (idx_l >= 0) & (
@@ -665,10 +368,8 @@ def ring_closest_hit(shard, o, d, t_max, tp_size: int, axis="tp"):
         "t": packet["t"],
         "hit": found,
         "prim": jnp.where(found, packet["gid"], 0),
-        # stream shards: interaction_from_reduced derives bary from the
-        # carried winner rows instead
-        "b0": None if derive_bary else packet["b0"],
-        "b1": None if derive_bary else packet["b1"],
+        "b0": packet["b0"],
+        "b1": packet["b1"],
         **{k: packet[k] for k in _REC_VEC},
         "mat": packet["mat"],
         "light": packet["light"],
@@ -680,28 +381,23 @@ def ring_closest_hit(shard, o, d, t_max, tp_size: int, axis="tp"):
 # ---------------------------------------------------------------------------
 
 
-def _shard_specs(tp_axis, bvh, P, pallas=False):
+def _shard_specs(tp_axis, bvh, P):
     """PartitionSpec dict matching shard_triangle_arrays' key set."""
     spec = {k: P(tp_axis, None) for k in (
         "p0", "p1", "p2", "uv0", "uv1", "uv2", "n0", "n1", "n2"
     )}
     spec.update({k: P(tp_axis) for k in ("mat", "light", "valid", "gid")})
-    if bvh or pallas:
-        spec.update({k: P(tp_axis, None) for k in ("bvh_min", "bvh_max")})
-        spec.update(
-            {k: P(tp_axis) for k in ("bvh_skip", "bvh_first", "bvh_count", "nn")}
-        )
-    if pallas:
-        spec.update({k: P(tp_axis) for k in (
-            "pk_nodes", "pk_tris", "pk_roots", "pk_clmin", "pk_clmax",
-            "pk_s2p", "leaf_tag", "attr_rows",
+    if bvh:
+        spec.update({k: P(tp_axis, None) for k in (
+            "bvh_box", "bvh_link", "bvh_tris"
         )})
+        spec["nn"] = P(tp_axis)
     return spec
 
 
 def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l,
                          max_depth=3, dp_axis="dp", tp_axis="tp",
-                         formulation="allreduce", bvh=False, pallas=False):
+                         formulation="allreduce", bvh=False):
     """Builds a jitted SPMD render step over a (dp, tp) mesh.
 
     Inputs at call time: (state, shard_tables_local?, pixels, sidx) — the
@@ -716,11 +412,6 @@ def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l,
       * "ring"      — rays sharded over tp too; packets rotate the ring
         (see :func:`ring_closest_hit`).  Same images, tp x more lanes.
     """
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from pbrt_tpu.core.geometry import coordinate_system, vface_forward
@@ -728,6 +419,7 @@ def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l,
 
     kd_table = jnp.asarray(kd_table)
     env_l = jnp.asarray(env_l)
+    platform = mesh.devices.flat[0].platform
 
     def local_step(state, shard, pixel_xy, sidx):
         n = pixel_xy.shape[0]
@@ -741,11 +433,12 @@ def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l,
             if formulation == "ring":
                 hit = ring_closest_hit(
                     shard, o, d, jnp.full((n,), INF_T, dtype=float_t),
-                    mesh.shape[tp_axis], tp_axis,
+                    mesh.shape[tp_axis], tp_axis, platform,
                 )
             else:
                 t_l, idx_l, b0, b1 = local_closest_hit(
-                    shard, o, d, jnp.full((n,), INF_T, dtype=float_t)
+                    shard, o, d, jnp.full((n,), INF_T, dtype=float_t),
+                    platform=platform,
                 )
                 hit = allreduce_closest(shard, t_l, idx_l, b0, b1, tp_axis)
             esc = alive & ~hit["hit"]
@@ -779,21 +472,21 @@ def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l,
             partial = jax.tree_util.tree_map(lambda x: x / tp_size, partial)
         return jax.tree_util.tree_map(jnp.add, state, partial)
 
-    shard_spec = _shard_specs(tp_axis, bvh, P, pallas)
+    shard_spec = _shard_specs(tp_axis, bvh, P)
     ray_axes = (dp_axis, tp_axis) if formulation == "ring" else dp_axis
-    fn = shard_map(
+    fn = jax.shard_map(
         local_step,
         mesh=mesh,
         in_specs=(P(), shard_spec, P(ray_axes, None), P(ray_axes)),
         out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
 
 def make_sharded_grad_fn(mesh, camera, sampler, film, target,
                          max_depth=3, dp_axis="dp", tp_axis="tp", bvh=False,
-                         pallas=False, remat=True):
+                         remat=True):
     """Jitted loss+gradient step with geometry sharded over tp: the
     path-replay inverse-rendering formulation of BASELINE config 5.
 
@@ -805,17 +498,13 @@ def make_sharded_grad_fn(mesh, camera, sampler, film, target,
     wavefront state, and the resulting parameter gradients are psum'd over
     (dp, tp).  Returns ``fn(theta, shard, pixels, sidx) -> (loss, grads)``.
     """
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from pbrt_tpu.core.geometry import coordinate_system, vface_forward
     from pbrt_tpu.core.sampling import cosine_sample_hemisphere
 
     target = jnp.asarray(target)
+    platform = mesh.devices.flat[0].platform
 
     def radiance(theta, shard, pixel_xy, sidx):
         n = pixel_xy.shape[0]
@@ -833,7 +522,8 @@ def make_sharded_grad_fn(mesh, camera, sampler, film, target,
         def bounce_body(bounce, carry):
             L, beta, alive, o, d = carry
             t_l, idx_l, b0, b1 = local_closest_hit(
-                shard, o, d, jnp.where(alive, INF_T, 0.0).astype(float_t)
+                shard, o, d, jnp.where(alive, INF_T, 0.0).astype(float_t),
+                platform=platform,
             )
             hit = allreduce_closest(shard, t_l, idx_l, b0, b1, tp_axis)
             esc = alive & ~hit["hit"]
@@ -873,24 +563,25 @@ def make_sharded_grad_fn(mesh, camera, sampler, film, target,
         want = target[pix[..., 1], pix[..., 0]]
         # tp replicas trace identical rays: average, don't double count
         per_lane = jnp.sum((L - want) ** 2, axis=-1) / mesh.shape[tp_axis]
-        return jax.lax.psum(jnp.sum(per_lane), (dp_axis, tp_axis))
+        return jnp.sum(per_lane)
 
     def local_step(theta, shard, pixel_xy, sidx):
+        # each device differentiates its own lanes' share of the loss (the
+        # collectives inside carry no theta dependence); the all-reduce of
+        # loss and gradients over (dp, tp) completes the training step
         loss, grads = jax.value_and_grad(local_loss)(theta, shard, pixel_xy, sidx)
-        # the psum in local_loss transposes to a broadcast cotangent, so
-        # each device holds only its lanes' d(loss)/d(theta) — the gradient
-        # all-reduce over the mesh completes the distributed training step
+        total = jax.lax.psum(loss, (dp_axis, tp_axis))
         grads = jax.tree_util.tree_map(
             lambda g: jax.lax.psum(g, (dp_axis, tp_axis)), grads
         )
-        return loss, grads
+        return total, grads
 
-    shard_spec = _shard_specs(tp_axis, bvh, P, pallas)
-    fn = shard_map(
+    shard_spec = _shard_specs(tp_axis, bvh, P)
+    fn = jax.shard_map(
         local_step,
         mesh=mesh,
         in_specs=(P(), shard_spec, P(dp_axis, None), P(dp_axis)),
         out_specs=(P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)

@@ -2,7 +2,7 @@
 
 Replaces the reference's designed-but-unwired thread/tile parallelism
 (film.rs FilmTile + mutex merge, parallel.rs AtomicFloat — SURVEY.md §2.2)
-with the TPU-native mapping:
+with a device-mesh mapping:
 
   * **dp** axis: the ray/pixel batch is sharded — each device traces its
     slice of the wavefront (domain decomposition over pixels = the
@@ -12,10 +12,11 @@ with the TPU-native mapping:
   * film merge: per-device partial films are **psum**'d over both axes —
     the deterministic collective replacement for mutex/atomic accumulation;
   * gradients: the inverse-rendering loss psum's across the mesh inside
-    ``shard_map`` so ``jax.grad`` all-reduces parameter gradients over ICI.
+    ``shard_map`` so ``jax.grad`` all-reduces parameter gradients across
+    the devices.
 
-Geometry is replicated in HBM (BASELINE small/medium configs); the sharded-
-geometry + ray-forwarding path (all_to_all) is the scale-out milestone.
+Geometry is replicated in device memory (BASELINE small/medium configs);
+geometry sharding over a tp axis lives in ``geomshard.py``.
 
 Determinism: sample values depend only on (pixel, sample, dim) — never on
 device id — so any mesh shape produces the bit-identical film
@@ -31,14 +32,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-import warnings
-
-with warnings.catch_warnings():
-    # the new jax.shard_map varying-type checker rejects lax.scan carries
-    # that start replicated; the experimental entry point with
-    # check_rep=False handles them fine.
-    warnings.simplefilter("ignore", DeprecationWarning)
-    from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pbrt_tpu import float_t
@@ -90,12 +83,14 @@ class ShardedRenderer:
             )
             return jax.tree_util.tree_map(jnp.add, state, partial)
 
-        fn = shard_map(
+        # check_vma=False: the varying-type checker rejects lax.scan
+        # carries that start replicated
+        fn = jax.shard_map(
             local_step,
             mesh=self.mesh,
             in_specs=(P(), P("dp", None), P(), P("dp")),
             out_specs=P(),
-            check_rep=False,
+            check_vma=False,
         )
         return jax.jit(fn)
 
@@ -172,7 +167,7 @@ class ShardedRenderer:
         """Returns jitted step(theta, pixel_xy) -> (loss, new_theta).
 
         The loss mean and its parameter gradients are psum'd across the
-        mesh inside shard_map — gradient all-reduce over ICI.
+        mesh inside shard_map — gradient all-reduce across the devices.
         """
         from pbrt_tpu.diff.grad import make_radiance_fn
 
@@ -200,14 +195,13 @@ class ShardedRenderer:
 
         # Differentiate THROUGH the shard_map: jax.grad of the sharded loss
         # w.r.t. the replicated theta performs the cross-device gradient
-        # all-reduce as the transpose of theta's broadcast — the collective
-        # runs over ICI on hardware.
-        sharded_loss = shard_map(
+        # all-reduce as the transpose of theta's broadcast.
+        sharded_loss = jax.shard_map(
             local_loss,
             mesh=self.mesh,
             in_specs=(P(), P("dp", None)),
             out_specs=P(),
-            check_rep=False,
+            check_vma=False,
         )
 
         def step(theta, pixel_xy):

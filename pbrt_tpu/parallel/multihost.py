@@ -2,19 +2,19 @@
 
 SURVEY.md §2.2: the reference has no distributed communication backend of
 any kind (no sockets, no RPC, no MPI anywhere in the crate).  The
-TPU-native equivalent is the JAX multi-controller runtime: every host runs
+JAX equivalent is the multi-controller runtime: every host runs
 the same program, `jax.distributed.initialize` wires the hosts into one
-XLA runtime, and `jax.devices()` then spans the whole pod — collectives
-(psum film merges, all_gathers, ppermute ring forwarding) compile to ICI
-within a slice and DCN across slices with no further code changes.  All
+XLA runtime, and `jax.devices()` then spans every host — collectives
+(psum film merges, all_gathers, ppermute ring forwarding) compile to
+NCCL collectives within and across hosts with no further code changes.  All
 of pbrt_tpu's mesh code (`parallel/mesh.py`, `parallel/geomshard.py`)
 works unchanged on a global mesh because sampling is a pure function of
 (pixel, sample, dim): no host ever needs another host's RNG state.
 
-Typical pod usage (same script on every host):
+Typical multi-host usage (same script on every host):
 
     from pbrt_tpu.parallel.multihost import initialize_multihost, global_mesh
-    initialize_multihost()              # env-driven on TPU pods
+    initialize_multihost("host0:1234", n_hosts, rank)
     mesh = global_mesh(dp=None, sp=2)   # spans ALL hosts' devices
     ShardedRenderer(Renderer(desc, opt), mesh).render()
 
@@ -41,9 +41,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          process_id: Optional[int] = None) -> bool:
     """Initialize the JAX multi-controller runtime.
 
-    On TPU pods all three arguments auto-detect from the environment
-    (pass nothing); elsewhere supply coordinator "host:port", world size,
-    and this process's rank.  Safe to call when already initialized or on
+    Where a cluster manager describes the job, the three arguments
+    auto-detect from the environment (pass nothing); elsewhere supply
+    coordinator "host:port", world size, and this process's rank.  Safe to call when already initialized or on
     a single process (returns False then).  Mirrors what NCCL/MPI init
     would be in the reference's world — which has none (SURVEY §2.2).
     """

@@ -142,7 +142,7 @@ class HaltonSampler(Sampler):
     per-(pixel, dim) Cranley-Patterson rotation.
 
     Divergence from pbrt-v3 (documented): pbrt enumerates one global Halton
-    sequence and computes which global indices land in each pixel; on TPU we
+    sequence and computes which global indices land in each pixel; on device we
     instead give every pixel the full sequence with an independent random
     rotation — the same convergence order, but the index math is a pure
     per-lane function with no CRT solve.
@@ -198,7 +198,7 @@ class SobolSampler(Sampler):
 
 class ZeroTwoSequenceSampler(SobolSampler):
     """(0,2)-sequence: Sobol dims (0,1) reused per 2D pair with per-pair
-    scrambles (pbrt-v3 §7.5); on TPU this is Sobol with pair-folded dims."""
+    scrambles (pbrt-v3 §7.5); on device this is Sobol with pair-folded dims."""
 
     def get(self, pixel_xy, sample_index, dim: int):
         pair_dim = dim % 2
@@ -214,7 +214,7 @@ class ZeroTwoSequenceSampler(SobolSampler):
 class MaxMinDistSampler(ZeroTwoSequenceSampler):
     """pbrt's maxmindist generator matrices are specially chosen (0,2)
     variants; Owen-scrambled (0,2) has equal or better blue-noise-ish
-    distribution, so this aliases ZeroTwoSequence on TPU."""
+    distribution, so this aliases ZeroTwoSequence on device."""
 
 
 def make_sampler(name: str, params, seed: int = 0) -> Sampler:

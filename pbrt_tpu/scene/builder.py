@@ -30,6 +30,9 @@ from pbrt_tpu.ops.intersect_soa import SoABruteForceIntersector
 from pbrt_tpu.samplers import make_sampler
 from pbrt_tpu.shapes import SphereData, TriangleData, concat_triangle_data, make_shape
 
+# device matrix products run at full f32 (no TF32 on the GPU)
+HIGHEST = jax.lax.Precision.HIGHEST
+
 log = logging.getLogger("pbrt_tpu")
 
 
@@ -711,24 +714,6 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
             p0, p1, p2 = rows[:, lay["p0"]], rows[:, lay["p1"]], rows[:, lay["p2"]]
         b0 = hit["b0"]
         b1 = hit["b1"]
-        if b0 is None:
-            # the Pallas walks return only (t, prim): project the hit point
-            # onto the dual basis of (e1, e2) from the rows gathered above
-            e1 = p1 - p0
-            e2 = p2 - p0
-            v = p - p0
-            E = jnp.sum(e1 * e1, axis=-1)
-            F = jnp.sum(e1 * e2, axis=-1)
-            G = jnp.sum(e2 * e2, axis=-1)
-            det_b = E * G - F * F
-            inv_b = jnp.where(
-                jnp.abs(det_b) > 1e-20,
-                1.0 / jnp.where(det_b == 0, 1.0, det_b), 0.0,
-            )
-            ve1 = jnp.sum(v * e1, axis=-1)
-            ve2 = jnp.sum(v * e2, axis=-1)
-            b0 = (G * ve1 - F * ve2) * inv_b
-            b1 = (E * ve2 - F * ve1) * inv_b
         b2 = 1.0 - b0 - b1
         mat_t = jnp.round(rows[:, lay["mat"]][:, 0]).astype(jnp.int32)
         light_t = jnp.round(rows[:, lay["light"]][:, 0]).astype(jnp.int32)
@@ -818,20 +803,21 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
         srows = select_rows(_sph_cols(sp), idx).astype(dt)
         m3 = srows[:, 0:12].reshape(-1, 3, 4)
         p_obj = (
-            jnp.einsum("nij,nj->ni", m3[:, :, :3], p) + m3[:, :, 3]
+            jnp.einsum("nij,nj->ni", m3[:, :, :3], p, precision=HIGHEST)
+            + m3[:, :, 3]
         )
         n_obj = p_obj / jnp.maximum(
             jnp.linalg.norm(p_obj, axis=-1, keepdims=True), 1e-12
         )
         # normal transform: (w2o)^T applied to object normal
-        n_w = jnp.einsum("nji,nj->ni", m3[:, :, :3], n_obj)
+        n_w = jnp.einsum("nji,nj->ni", m3[:, :, :3], n_obj, precision=HIGHEST)
         n_w = n_w / jnp.maximum(jnp.linalg.norm(n_w, axis=-1, keepdims=True), 1e-12)
         n_w = jnp.where(srows[:, 16:17] != 0.0, -n_w, n_w)
         m = is_sph[..., None]
         if uv_needed:
             # (phi, theta) parameterization — arctan2/arccos are among the
-            # most expensive VPU ops (~0.5ms each on a 262k wavefront), so
-            # this block is statically skipped for untextured scenes
+            # most expensive elementwise ops, so this block is statically
+            # skipped for untextured scenes
             phi = jnp.arctan2(p_obj[..., 1], p_obj[..., 0])
             phi = jnp.where(phi < 0, phi + 2 * np.pi, phi)
             r = srows[:, 12]

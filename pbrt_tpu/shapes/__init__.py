@@ -1,6 +1,6 @@
 """Shapes: host-side construction into flat device tables.
 
-TPU design decision (SURVEY.md §7): the device intersector knows exactly
+Design decision (SURVEY.md §7): the device intersector knows exactly
 TWO primitive kinds — analytic spheres and triangles.  Every other pbrt-v3
 shape (disk, cylinder, cone, paraboloid, hyperboloid, heightfield,
 loopsubdiv) is tessellated at scene-build time into triangles *with exact

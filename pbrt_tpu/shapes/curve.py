@@ -2,7 +2,7 @@
 
 pbrt-v3 defines ``Shape "curve"`` (the book's §3.7; named but absent in the
 reference — `wathiede/pbrt` has no shape types at all, see SURVEY.md §0).
-pbrt intersects curves with recursive ray/Bezier splitting; on TPU that is a
+pbrt intersects curves with recursive ray/Bezier splitting; on a wide device that is a
 divergent pointer-chase, so we follow this framework's shape doctrine
 (shapes/__init__.py): tessellate at build time into triangles with exact
 analytic attributes and let the single branchless intersector handle them.

@@ -1,4 +1,4 @@
-"""Texture evaluation, TPU-style.
+"""Texture evaluation, batched over lanes.
 
 The reference defines ``Texture<T>::evaluate(&SurfaceInteraction)`` per hit
 (/root/reference/src/core/texture.rs:24-30) and implements only the

@@ -64,7 +64,7 @@ def _checkerboard(t2w, tp, spectral):
     tex2 = _get_tex(tp, "tex2", 0.0, spectral)
     if dim == 3:
         return Checkerboard3DTexture(TransformMapping3D(t2w.inverse()), tex1, tex2)
-    # "aamode" accepted but antialiasing is handled by supersampling on TPU
+    # "aamode" accepted but antialiasing is handled by supersampling
     tp.find_string("aamode", "closedform")
     return CheckerboardTexture(mapping_from_params(tp, t2w), tex1, tex2)
 

@@ -3,7 +3,7 @@ dots.
 
 Noise is hash-based gradient (Perlin-style) noise — instead of the classic
 256-entry permutation table we derive lattice gradients from a counter hash
-(pcg3d), which vectorizes cleanly on the VPU and needs no table gathers.
+(pcg3d), which vectorizes cleanly and needs no table gathers.
 The gradient selection and smootherstep weights match pbrt-v3's Grad/
 NoiseWeight so the statistical character is the same.
 """

@@ -2,7 +2,7 @@
 
 The reference only has TODO hooks (ProfilePhase / STAT_COUNTER comments,
 film.rs:314, light.rs:47-49).  Here: a process-wide counter registry plus
-a ``jax.profiler`` trace context for TPU timeline capture.
+a ``jax.profiler`` trace context for device timeline capture.
 """
 
 from __future__ import annotations

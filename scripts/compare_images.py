@@ -7,12 +7,13 @@ Prints MSE / PSNR / max-abs-diff; exit 1 if max diff exceeds tolerance.
 
 import argparse
 import sys
+from pathlib import Path
 
 import numpy as np
 
 
 def load(path):
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from pbrt_tpu.core.imageio import read_image
 
     img, _ = read_image(path)

@@ -1,13 +1,19 @@
-"""Render the gallery images for RESULTS.md (CPU ok, TPU if available)."""
+"""Render the gallery images into gallery/ (CPU by default; set
+GALLERY_CPU=0 to use the accelerator).
+
+    python scripts/gallery.py [check cornell torus glass fog sppm]
+"""
 
 import os
 import sys
 import time
+from pathlib import Path
 
 if os.environ.get("GALLERY_CPU", "1") != "0":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-sys.path.insert(0, "/root/repo")
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
 
 import jax
 
@@ -24,7 +30,7 @@ from pbrt_tpu import Options
 from pbrt_tpu.core.api import PbrtAPI
 from pbrt_tpu.render import render_scene
 
-OUT = "/root/repo/gallery"
+OUT = str(REPO / "gallery")
 os.makedirs(OUT, exist_ok=True)
 
 
@@ -46,7 +52,7 @@ def main():
     which = sys.argv[1:] if len(sys.argv) > 1 else ["check", "cornell", "torus", "glass", "fog", "sppm"]
 
     if "check" in which:
-        text = open("/root/reference/scenes/check-sphere.pbrt").read()
+        text = (REPO / "scenes" / "check-sphere.pbrt").read_text()
         text = text.replace("[400]", "[200]").replace('"integer yresolution" [400]', '"integer yresolution" [200]')
         text = text.replace("128", "48")
         run("check-sphere", text)
@@ -119,7 +125,7 @@ WorldEnd
 """)
 
     if "sppm" in which:
-        sys.path.insert(0, "/root/repo/tests")
+        sys.path.insert(0, str(REPO / "tests"))
         from test_sppm import BOX
 
         run(
@@ -133,7 +139,7 @@ WorldEnd
 
 def round3_gallery(only=None):
     """Round-3 additions: 1M-triangle torus (streaming BVH), motion blur,
-    MLT caustic.  Run on TPU: GALLERY_CPU=0 python scripts/gallery.py r3"""
+    MLT caustic.  On the accelerator: GALLERY_CPU=0 python scripts/gallery.py r3"""
     from pbrt_tpu.core.api import PbrtAPI as API
     from pbrt_tpu.render import Renderer
     from pbrt_tpu.testscenes import _torus_mesh_params

@@ -1,5 +1,7 @@
 """API state-machine tests mirroring api.rs:966-1065 doctests/unit tests."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -130,7 +132,9 @@ def test_camera_stores_inverse_ctm_and_coordsys():
 def test_scene_accumulation_check_sphere():
     """Parse the acceptance scene (scenes/check-sphere.pbrt content) and
     verify the full description lands in SceneDescription."""
-    scene_text = open("/root/reference/scenes/check-sphere.pbrt").read()
+    scene_text = (
+        Path(__file__).resolve().parent.parent / "scenes" / "check-sphere.pbrt"
+    ).read_text()
     pbrt = make_api()
     pbrt.init()
     pbrt.parse_string(scene_text)

@@ -1,5 +1,7 @@
 """BVH correctness: traversal must agree exactly with brute force."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -10,6 +12,8 @@ from pbrt_tpu import float_t
 from pbrt_tpu.accel.bvh import BVHIntersector, build_bvh
 from pbrt_tpu.ops.intersect import BruteForceIntersector
 from pbrt_tpu.shapes import TriangleData
+
+SCENES = Path(__file__).resolve().parent.parent / "scenes"
 
 
 def random_mesh(n_tris, seed=0, extent=10.0):
@@ -150,7 +154,7 @@ def test_native_tokenizer_parity():
     from pbrt_tpu.core.parser import create_from_string
     from pbrt_tpu.native import tokenize_native
 
-    data = open("/root/reference/scenes/check-sphere.pbrt", "rb").read()
+    data = (SCENES / "check-sphere.pbrt").read_bytes()
     out = tokenize_native(data)
     if out is None:
         pytest.skip("native library unavailable")
@@ -158,282 +162,3 @@ def test_native_tokenizer_parity():
     native = [data[s:e].decode() for s, e in zip(st, en)]
     python = list(create_from_string(data))
     assert native == python
-
-
-def test_sorted_pallas_traversal_matches_brute():
-    """The TPU packet-traversal path (Pallas kernel + Morton ray sort) in
-    interpret mode must agree exactly with brute force."""
-    tri = random_mesh(800, seed=4)
-    bvh = BVHIntersector(tri, None, use_pallas=True, pallas_interpret=True)
-    brute = BruteForceIntersector(tri, None)
-    o, d = random_rays(2048, seed=9)
-    tm = jnp.full((2048,), 1e8, jnp.float32)
-    hp = bvh.intersect(o, d, tm)
-    hb = jax.jit(brute.intersect)(o, d, tm)
-    np.testing.assert_array_equal(np.asarray(hb["hit"]), np.asarray(hp["hit"]))
-    m = np.asarray(hb["hit"])
-    np.testing.assert_allclose(
-        np.asarray(hb["t"])[m], np.asarray(hp["t"])[m], rtol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(hb["prim"])[m], np.asarray(hp["prim"])[m]
-    )
-
-
-def test_ordered_pallas_kernel_matches_brute():
-    """The ordered stack-traversal kernel (PallasBVH2) in interpret mode
-    must agree with brute force on hits/t and produce valid prims."""
-    from pbrt_tpu.ops.pallas_bvh import PallasBVH2
-
-    tri = random_mesh(800, seed=5)
-    mins, maxs, skips, firsts, counts, perm = build_bvh(tri.p0, tri.p1, tri.p2)
-    k = PallasBVH2(
-        mins, maxs, skips, firsts, counts,
-        tri.p0[perm], tri.p1[perm], tri.p2[perm], interpret=True,
-    )
-    brute = BruteForceIntersector(tri, None)
-    o, d = random_rays(2048, seed=11)
-    tm = jnp.full((2048,), 1e8, jnp.float32)
-    t, prim = k.traverse(o, d, tm)
-    hb = jax.jit(brute.intersect)(o, d, tm)
-    hit = np.asarray(prim) >= 0
-    np.testing.assert_array_equal(np.asarray(hb["hit"]), hit)
-    np.testing.assert_allclose(
-        np.asarray(hb["t"])[hit], np.asarray(t)[hit], rtol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(hb["prim"])[hit], np.asarray(perm)[np.asarray(prim)[hit]]
-    )
-    # any-hit agrees on occlusion
-    _, prim_any = k.traverse(o, d, tm, any_hit=True)
-    np.testing.assert_array_equal(np.asarray(prim_any) >= 0, hit)
-
-
-def test_ordered_pallas_kernel_single_leaf():
-    """Tiny mesh (root is a single leaf) goes through the leaf-root path."""
-    from pbrt_tpu.ops.pallas_bvh import PallasBVH2
-
-    tri = random_mesh(3, seed=6)
-    mins, maxs, skips, firsts, counts, perm = build_bvh(tri.p0, tri.p1, tri.p2)
-    k = PallasBVH2(
-        mins, maxs, skips, firsts, counts,
-        tri.p0[perm], tri.p1[perm], tri.p2[perm], interpret=True,
-    )
-    brute = BruteForceIntersector(tri, None)
-    o, d = random_rays(512, seed=12)
-    tm = jnp.full((512,), 1e8, jnp.float32)
-    t, prim = k.traverse(o, d, tm)
-    hb = jax.jit(brute.intersect)(o, d, tm)
-    np.testing.assert_array_equal(np.asarray(hb["hit"]), np.asarray(prim) >= 0)
-
-
-def _brute_ref(tri, o, d, tm):
-    brute = BruteForceIntersector(tri, None)
-    return jax.jit(brute.intersect)(o, d, tm)
-
-
-def test_stream_bvh_multi_cluster_matches_brute():
-    """Two-level streaming kernel (small target_tris forces many clusters)
-    must agree with brute force in interpret mode."""
-    from pbrt_tpu.ops.stream_bvh import StreamBVH
-
-    tri = random_mesh(3000, seed=21)
-    mins, maxs, skips, firsts, counts, perm = build_bvh(
-        tri.p0, tri.p1, tri.p2, leaf_size=8
-    )
-    k = StreamBVH(
-        mins, maxs, skips, firsts, counts,
-        tri.p0[perm], tri.p1[perm], tri.p2[perm],
-        target_tris=256, interpret=True,
-    )
-    assert k.n_clusters > 4
-    o, d = random_rays(2048, seed=22)
-    tm = jnp.full((2048,), 1e8, jnp.float32)
-    t, prim = k.traverse(o, d, tm)
-    hb = _brute_ref(tri, o, d, tm)
-    hit = np.asarray(prim) >= 0
-    np.testing.assert_array_equal(np.asarray(hb["hit"]), hit)
-    np.testing.assert_allclose(
-        np.asarray(hb["t"])[hit], np.asarray(t)[hit], rtol=1e-4, atol=1e-6
-    )
-    np.testing.assert_array_equal(
-        np.asarray(hb["prim"])[hit], np.asarray(perm)[np.asarray(prim)[hit]]
-    )
-    # any-hit finds exactly the occluded set
-    _, prim_any = k.traverse(o, d, tm, any_hit=True)
-    np.testing.assert_array_equal(np.asarray(prim_any) >= 0, hit)
-
-
-def test_stream_bvh_single_cluster_and_dead_lanes():
-    from pbrt_tpu.ops.stream_bvh import StreamBVH
-
-    tri = random_mesh(300, seed=23)
-    mins, maxs, skips, firsts, counts, perm = build_bvh(
-        tri.p0, tri.p1, tri.p2, leaf_size=8
-    )
-    k = StreamBVH(
-        mins, maxs, skips, firsts, counts,
-        tri.p0[perm], tri.p1[perm], tri.p2[perm],
-        target_tris=4096, interpret=True,
-    )
-    assert k.n_clusters == 1
-    o, d = random_rays(1024, seed=24)
-    tm = jnp.full((1024,), 1e8, jnp.float32)
-    # half the lanes are dead (t_max = 0): they must report no hit
-    tm = tm.at[::2].set(0.0)
-    t, prim = k.traverse(o, d, tm)
-    assert not np.any(np.asarray(prim)[::2] >= 0)
-    hb = _brute_ref(tri, o, d, tm)
-    live = np.ones(1024, bool)
-    live[::2] = False
-    np.testing.assert_array_equal(
-        np.asarray(hb["hit"])[live], (np.asarray(prim) >= 0)[live]
-    )
-    hit_live = live & (np.asarray(prim) >= 0)
-    np.testing.assert_allclose(
-        np.asarray(hb["t"])[hit_live], np.asarray(t)[hit_live], rtol=1e-5
-    )
-
-
-def test_bvh_intersector_stream_path_matches_brute(monkeypatch):
-    """Past the whole-tree VMEM budget the accelerator routes through
-    StreamBVH; the full intersect/occluded interface must agree with
-    brute force."""
-    tri = random_mesh(5000, seed=25)
-    bvh = BVHIntersector(tri, None, use_pallas=True, pallas_interpret=True)
-    from pbrt_tpu.ops.stream_bvh import StreamBVH
-
-    assert isinstance(bvh._pallas, StreamBVH)
-    o, d = random_rays(2048, seed=26)
-    tm = jnp.full((2048,), 1e8, jnp.float32)
-    hp = bvh.intersect(o, d, tm)
-    hb = _brute_ref(tri, o, d, tm)
-    np.testing.assert_array_equal(np.asarray(hb["hit"]), np.asarray(hp["hit"]))
-    m = np.asarray(hb["hit"])
-    np.testing.assert_allclose(
-        np.asarray(hb["t"])[m], np.asarray(hp["t"])[m], rtol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(hb["prim"])[m], np.asarray(hp["prim"])[m]
-    )
-    ob = np.asarray(BruteForceIntersector(tri, None).occluded(o, d, jnp.full((2048,), 20.0, jnp.float32)))
-    ov = np.asarray(bvh.occluded(o, d, jnp.full((2048,), 20.0, jnp.float32)))
-    np.testing.assert_array_equal(ob, ov)
-
-
-def test_split_clusters_partitions_prims():
-    from pbrt_tpu.ops.stream_bvh import split_clusters
-
-    tri = random_mesh(2000, seed=27)
-    mins, maxs, skips, firsts, counts, perm = build_bvh(
-        tri.p0, tri.p1, tri.p2, leaf_size=8
-    )
-    cl = split_clusters(skips, firsts, counts, 2000, 128)
-    spans = sorted((lo, hi) for (_, lo, hi) in cl)
-    assert spans[0][0] == 0 and spans[-1][1] == 2000
-    for (a, b), (c2, d2) in zip(spans, spans[1:]):
-        assert b == c2  # contiguous, non-overlapping
-    assert all(hi - lo <= 128 or counts[i] > 0 for (i, lo, hi) in cl)
-
-
-def test_stream_path_uv_bary_parity():
-    """Full textured render through the interpret-mode streaming kernel:
-    the post-kernel barycentric derivation (compute_interaction dual-basis
-    projection) must reproduce the brute-force images — uv-dependent
-    checkerboard shading included."""
-    from pbrt_tpu import Options
-    from pbrt_tpu.core.api import PbrtAPI
-    from pbrt_tpu.render import Renderer
-    from pbrt_tpu.testscenes import _torus_mesh_params
-
-    api = PbrtAPI(Options(ray_batch=4096), render_on_world_end=False)
-    api.init()
-    api.parse_string(
-        """
-        LookAt 2.8 2.2 2.8  0 0 0  0 0 1
-        Camera "perspective" "float fov" 45
-        Sampler "halton" "integer pixelsamples" 2
-        Integrator "path" "integer maxdepth" 2
-        Film "image" "integer xresolution" [24] "integer yresolution" [24]
-        Accelerator "bvh" "integer minprims" 1
-        WorldBegin
-        LightSource "infinite" "rgb L" [1 1 1]
-        Texture "checks" "spectrum" "checkerboard"
-            "float uscale" [8] "float vscale" [4]
-            "rgb tex1" [.1 .2 .9] "rgb tex2" [.9 .8 .1]
-        Material "matte" "texture Kd" "checks"
-        """
-    )
-    ps, _ = _torus_mesh_params(48, 24)
-    api.shape("trianglemesh", ps)
-
-    def run(force_stream):
-        r = Renderer(api.scene, api.opt)
-        if force_stream:
-            tri = r.compiled.tri_data
-            r.compiled.intersector = BVHIntersector(
-                tri, r.compiled.sph_data, use_pallas=True,
-                pallas_interpret=True,
-            )
-            from pbrt_tpu.ops.stream_bvh import StreamBVH
-
-            # 48x24 torus = 2304 tris < STREAM_MIN_TRIS; force the stream
-            # kernel explicitly so the derived-bary path is what renders
-            mins, maxs, skips, firsts, counts, perm = build_bvh(
-                tri.p0, tri.p1, tri.p2, 16
-            )
-            bvh = r.compiled.intersector
-            bvh._pallas = StreamBVH(
-                mins, maxs, skips, firsts, counts,
-                tri.p0[perm], tri.p1[perm], tri.p2[perm],
-                target_tris=512, interpret=True, leaf_slots=16,
-            )
-            bvh._slot_to_dfs = jnp.asarray(
-                bvh._pallas.slot_to_prim.astype(np.int32)
-            )
-            bvh.perm = jnp.asarray(
-                perm.astype(np.int32)[bvh._pallas.slot_to_prim]
-            )
-            bvh.tri_c = tuple(
-                jnp.asarray(arr[:, c].copy())
-                for arr in (tri.p0[perm], tri.p1[perm], tri.p2[perm])
-                for c in range(3)
-            )
-            bvh.leaf_size = 16
-        state = r.render(progress=False)
-        return np.asarray(r.film.to_rgb(state))
-
-    img_brute = run(False)
-    img_stream = run(True)
-    np.testing.assert_allclose(img_stream, img_brute, atol=2e-3)
-
-
-def test_stream_fused_leaf_walk_matches_plain():
-    """Fused-leaf traversal (leaf children intersected at the parent under
-    lax.cond — ~2x fewer loop iterations on 16-slot-leaf trees) must
-    produce identical hits to the plain ordered walk."""
-    from pbrt_tpu.ops import stream_bvh as SB
-    from pbrt_tpu.ops.stream_bvh import StreamBVH
-
-    tri = random_mesh(2500, seed=5)
-    mins, maxs, skips, firsts, counts, perm = build_bvh(
-        tri.p0, tri.p1, tri.p2, 16
-    )
-    sb = StreamBVH(
-        mins, maxs, skips, firsts, counts,
-        tri.p0[perm], tri.p1[perm], tri.p2[perm],
-        target_tris=700, interpret=True, leaf_slots=16,
-    )
-    o, d = random_rays(1024, seed=6)
-    tm = jnp.full((1024,), 1e8, jnp.float32)
-    args = (sb.nodes, sb.tris, sb.roots, sb.cl_min, sb.cl_max, o, d, tm)
-    t1, p1 = SB.stream_traverse(*args, fused=False, leaf_slots=16,
-                                interpret=True)
-    t2, p2 = SB.stream_traverse(*args, fused=True, leaf_slots=16,
-                                interpret=True)
-    h1 = np.asarray(p1) >= 0
-    np.testing.assert_array_equal(h1, np.asarray(p2) >= 0)
-    np.testing.assert_allclose(
-        np.asarray(t1)[h1], np.asarray(t2)[h1], rtol=1e-5
-    )
-    np.testing.assert_array_equal(np.asarray(p1)[h1], np.asarray(p2)[h1])

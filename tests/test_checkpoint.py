@@ -1,6 +1,6 @@
 """Kill-and-resume: the product checkpoint path (not just the npz helper).
 
-SURVEY §5: the reference has no checkpointing; the TPU build owes film +
+SURVEY §5: the reference has no checkpointing; the device build owes film +
 sweep-cursor checkpoints for preemption recovery.  Because samplers are
 pure functions of (pixel, sample, dim), a resumed render must be
 bit-identical to an uninterrupted one.

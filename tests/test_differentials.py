@@ -1,7 +1,7 @@
 """Camera ray differentials -> texture footprints -> live MIPMap levels.
 
 The reference carries the full EWA machinery as a stub
-(/root/reference/src/core/mipmap.rs:33-67); these tests pin down the TPU
+(reference src/core/mipmap.rs:33-67); these tests pin down the device
 build's live path: footprint math on a known plane, trilinear level
 selection reaching the coarse pyramid, and reduced aliasing on a
 grazing-angle imagemap vs finest-level point sampling.

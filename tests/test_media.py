@@ -153,7 +153,7 @@ def test_grid_tracking_unbiased_vs_quadrature():
     np.testing.assert_allclose((~np.asarray(scattered)).mean(), expected, rtol=0.02)
 
 
-# -- subsurface scattering (TPU-native: interface + interior medium) ---------
+# -- subsurface scattering (device: interface + interior medium) ---------
 
 
 def test_dipole_inversion_round_trip():

@@ -228,7 +228,7 @@ def test_mlt_scattering_fog_matches_volpath():
     # exact reproducible ratios.  b (the bootstrap E[f] normalizer) is
     # the binding constant on this scene: volumetric multiple-scattering
     # f is heavy-tailed and 8k bootstrap samples underestimate b by ~14%
-    # (measured r5: whole-image ratio 0.863 at 8k -> 0.916 at 65k);
+    # (whole-image ratio 0.863 at 8k -> 0.916 at 65k, on the CPU);
     # RESULTS r5 records the sweep.  The r5 fix this test guards:
     # mutationsperpixel was silently overridden by the sampler's
     # pixelsamples through Renderer.render (the parameter was dead).

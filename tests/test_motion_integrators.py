@@ -117,10 +117,12 @@ def test_sppm_motion_blur():
     )
 
 
+@pytest.mark.slow
 def test_volpath_motion_blur_in_fog():
-    """The r4 gap (VERDICT r4 item 7): fog-box x keyframe-blend — the
-    null-boundary segment march with time-blended geometry INSIDE a
-    bounded medium.  k=2 averaged-static keeps the 2-core compile budget
-    (each fog x motion variant is its own jit program)."""
+    """Fog-box x keyframe-blend — the null-boundary segment march with
+    time-blended geometry INSIDE a bounded medium.  Marked slow: each of
+    its four renders is its own fog x motion jit program, and on the CPU
+    the test ran for more than ten minutes on eight cores without
+    finishing, past the tier-1 time budget."""
     _blur_check("volpath", media=FOG_HEAD, fogbox=FOG_BOX, spp=16, k=2,
                 atol=0.06)

@@ -94,8 +94,9 @@ def test_sharded_grad_step_matches_single_device():
 
 def test_dryrun_multichip_entrypoint():
     import sys
+    from pathlib import Path
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)

@@ -2,8 +2,7 @@
 
 PathIntegrator keeps the wavefront permanently in ray-sorted order across
 bounces (one argsort + one packed row-gather per bounce) instead of
-sort/unsort-ing around every intersect — the round-4 answer to the
-measured ~25 ms/wavefront XLA permutation floor (RESULTS.md).  All ops in
+sort/unsort-ing around every intersect.  All ops in
 the bounce body are per-lane, so a permutation of lanes must produce the
 same image and the same parameter gradients, bit-for-bit on the CPU walk.
 """
@@ -142,8 +141,7 @@ def test_merged_shadow_sort_matches_per_call_sorts():
 
 def test_dead_bit_packing_does_not_change_image():
     """The dead-lane sort bit (wavefront compaction) only regroups
-    packets; images must be identical with it disabled (measured on-chip:
-    8.8% faster ON at maxdepth 8, scripts/profile_r4e.py)."""
+    packets; images must be identical with it disabled."""
     old = os.environ.get("PBRT_TPU_NO_DEADBIT")
     img_on = _render(disable_sc=False)
     os.environ["PBRT_TPU_NO_DEADBIT"] = "1"
